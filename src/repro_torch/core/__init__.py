@@ -1,0 +1,30 @@
+"""EDAN core: eDAG construction, the level kernel's dispatch, the cost
+model, the metrics and the batched §4 simulator."""
+from .graph import EDag, IndexOverflowError, MemLayering
+from .plan import ExecPolicy, SweepSpec, replay_mem_budget
+from .cache import NoCache, SetAssociativeCache, make_cache
+from .trace import Tracer, Value, build_edag_from_trace
+from .cost import (CostModelParams, memory_cost_bounds, total_cost_bounds,
+                   layered_upper_bound, non_memory_cost, analyze)
+from .metrics import (lambda_abs, lambda_rel, bandwidth_utilization,
+                      bandwidth_sweep, cost_vector, cost_matrix,
+                      data_movement_over_time, grid_report, report,
+                      sweep_report, t_inf_sweep, Report)
+from .backend import (LevelCSR, column_quanta, level_accumulate, levelize,
+                      replay_accumulate, replay_dtype_policy, select_backend)
+from .scheduler import (simulate, simulate_batch, simulate_reference,
+                        simulate_reference_classes, latency_sweep, sweep_grid)
+
+__all__ = [
+    "EDag", "IndexOverflowError", "MemLayering", "ExecPolicy", "SweepSpec",
+    "replay_mem_budget", "NoCache", "SetAssociativeCache", "make_cache",
+    "Tracer", "Value", "build_edag_from_trace", "CostModelParams",
+    "memory_cost_bounds", "total_cost_bounds", "layered_upper_bound",
+    "non_memory_cost", "analyze", "lambda_abs", "lambda_rel",
+    "bandwidth_utilization", "bandwidth_sweep", "cost_vector", "cost_matrix",
+    "data_movement_over_time", "grid_report", "report", "sweep_report",
+    "t_inf_sweep", "Report", "LevelCSR", "column_quanta", "level_accumulate",
+    "levelize", "replay_accumulate", "replay_dtype_policy", "select_backend",
+    "simulate", "simulate_batch", "simulate_reference",
+    "simulate_reference_classes", "latency_sweep", "sweep_grid",
+]

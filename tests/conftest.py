@@ -21,3 +21,8 @@ from hypothesis import settings
 
 settings.register_profile("ci", max_examples=30, deadline=None)
 settings.load_profile("ci")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device; skips without one")
