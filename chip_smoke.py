@@ -3,29 +3,47 @@
 
 Phases, each timed; any failure ends the run with a non-zero exit:
 
-1. card   — the card's name and power limit (``nvidia-smi``).
-2. build  — compile ``csrc/level_step.cu`` with nvcc and print ptxas's
-            register/shared-memory report.
-3. kernel — the CUDA level kernel against its plain PyTorch version on the
-            card, float32 and float64, with and without slot chains, ready
-            times and the clamp, on seeded random DAGs and on the real
-            replay plan of PolyBench gemm (N=20, m=4, 8 ALU slots).  F and R
-            must be bitwise equal.  Then timings: the kernel, the plain
-            version and a per-level ``scatter_reduce`` yardstick on the
-            main path's shapes.
-4. main   — the paper runner (``repro_torch.launch.paper``) at the paper's
-            sizes: PolyBench PAPER_15 at N=20 and HPCG 16^3 x 6 iterations
-            (1.79M vertices) under the default float32 replay policy, then
-            one latency sweep of the 32 kB HPCG trace with dirty alphas
-            under a replay budget that splits it into chunks (float32
-            columns demoted and rerun in float64 on the card), and the
-            policy-dependent figures (10/11 and 12) again under the
-            float64 policy.  Every printed line and every full-precision
-            value must equal ``src/repro_torch/configs/paper_expected.json``
-            (the JAX package's results), and the kernel's launch counter
-            must grow in every figure.
-5. report — the ``{"kernels": [...]}`` line, the card line, and last the
-            ``{"ok": true, "device": {...}}`` line.
+1. card    — the card's name and power limit (``nvidia-smi``).
+2. build   — compile the three CUDA sources (``csrc/level_step.cu``,
+             ``csrc/wkv6.cu``, ``csrc/ssd.cu``) with nvcc, one process each,
+             all started together, and print ptxas's register and
+             shared-memory report.
+3. kernel  — the CUDA level kernel against its plain PyTorch version on the
+             card, float32 and float64, with and without slot chains, ready
+             times and the clamp, on seeded random DAGs and on the real
+             replay plan of PolyBench gemm (N=20, m=4, 8 ALU slots).  F and R
+             must be bitwise equal.  Then timings: the kernel, the plain
+             version and a per-level ``scatter_reduce`` yardstick on the
+             main path's shapes.  Then the WKV6 and SSD kernels against
+             their plain versions (chunked at 256, and sequential) at
+             full-width heads, T = 1, 128, 256, a nonzero initial state,
+             the decay-e^-1 input on which the TPU kernels overflow, and a
+             grouped SSD case: finite, within ``REC_TOL``; and their times
+             at the serve shapes.
+4. main    — the paper runner (``repro_torch.launch.paper``) at the paper's
+             sizes: PolyBench PAPER_15 at N=20 and HPCG 16^3 x 6 iterations
+             (1.79M vertices) under the default float32 replay policy, then
+             one latency sweep of the 32 kB HPCG trace with dirty alphas
+             under a replay budget that splits it into chunks (float32
+             columns demoted and rerun in float64 on the card), and the
+             policy-dependent figures (10/11 and 12) again under the
+             float64 policy.  Every printed line and every full-precision
+             value must equal ``src/repro_torch/configs/paper_expected.json``
+             (the JAX package's results), and the kernel's launch counter
+             must grow in every figure.
+5. fixture — the serving path at two small fixture configs (float32) with
+             seeded numpy weights: greedy tokens equal and prefill logits
+             close to ``src/repro_torch/configs/serve_expected.json`` (the
+             JAX package's results).
+6. serve   — the serving launcher (``repro_torch.launch.serve.run``) at
+             full width: rwkv6-7b, then zamba2-7b (bf16 compute, float32
+             master weights from a seed), 4 slots, 8 requests of 128 tokens,
+             16 tokens each.  Every logit finite, the recurrence kernel
+             launched once per layer per prefill and decode step, one
+             prefill's logits through the kernels close to the plain
+             versions'; prefill ms, decode ms per step and tok/s.
+7. report  — the card line, the ``{"kernels": [...]}`` line, and last the
+             ``{"ok": true, "device": {...}}`` line.
 
 Usage: python3 chip_smoke.py   (from the root of a checkout, one card)
 """
@@ -439,6 +457,447 @@ def run_dirty_sweep(spec: dict) -> dict:
     return moved
 
 
+# ------------------------------------------------- recurrence kernel phase
+
+#: kernel against plain version: max |kernel - plain| over max |plain|, for
+#: y and for the final state.  Both compute the same float32 recurrence; the
+#: plain chunked form takes exp of cumulative log-decay differences and sums
+#: in another order (measured <= 1e-6 on the card in the first probe).
+REC_TOL = 1e-5
+#: full-width serving, kernels' path against plain versions' path, block by
+#: block on the same inputs: max |Δ| of a block's output hidden state (bf16)
+#: over its largest magnitude.  The recurrence outputs differ by ~1e-6
+#: (REC_TOL); that can flip bf16 roundings (8 significant bits) downstream
+#: in the block, which moves an element by 2^-8 of itself, a few such in
+#: a row by a few times that.
+SERVE_TOL = 2.0 ** -6
+#: the serve shapes of each recurrence: (label, batch, T); the prefill runs
+#: one request at a time, the decode step all 4 slots
+SERVE_SHAPES = (("T=1", 4, 1), ("T=128", 1, 128))
+
+
+def wkv6_inputs(B, H, T, K, V, seed, fault=False):
+    """Seeded float32 inputs on the card: decays in (0.45, 0.95), or all
+    e^-1 (the fault-1 input), a nonzero random initial state."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rn(*s, scale=1.0):
+        return torch.randn(*s, generator=g, device="cuda") * scale
+    r, k, v = rn(B, H, T, K), rn(B, H, T, K, scale=0.3), rn(B, H, T, V)
+    w = (torch.full((B, H, T, K), float(torch.e ** -1), device="cuda")
+         if fault else torch.sigmoid(rn(B, H, T, K)) * 0.5 + 0.45)
+    return r, k, v, w, rn(H, K, scale=0.1), rn(B, H, K, V, scale=0.1)
+
+
+def ssd_inputs(B, H, T, P, N, G, seed, fault=False):
+    """Seeded float32 inputs on the card: dt ~ 0.2 softplus, or dt=1 with
+    A=-1 (decay e^-1, the fault-1 input), a nonzero random initial state."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rn(*s, scale=1.0):
+        return torch.randn(*s, generator=g, device="cuda") * scale
+    x = rn(B, H, T, P)
+    if fault:
+        dt = torch.ones((B, H, T), device="cuda")
+        A = -torch.ones(H, device="cuda")
+    else:
+        dt = 0.2 * torch.nn.functional.softplus(rn(B, H, T))
+        A = -torch.exp(0.3 * rn(H))
+    return (x, dt, A, rn(B, G, T, N, scale=0.4), rn(B, G, T, N, scale=0.4),
+            rn(H, scale=0.1), rn(B, H, P, N, scale=0.1))
+
+
+def rel_err(a, b) -> float:
+    return abs_err(a, b) / max(b.double().abs().max().item(), 1e-30)
+
+
+def check_recurrences() -> dict:
+    """K2 and K3 against their plain versions (chunked at the configs'
+    256, and sequential) on the card, at full-width heads: every output
+    finite, y and the final state within REC_TOL.  Returns per kernel the
+    cases, the largest |Δ| and the largest relative |Δ|."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd import ssd
+    from repro_torch.kernels.wkv6 import wkv6
+    cases = [("wkv6", wkv6, ref.wkv6_chunked_ref, ref.wkv6_ref,
+              wkv6_inputs(4, 64, T, 64, 64, seed=T + int(f), fault=f),
+              f"B=4 H=64 T={T} K=V=64{' decay e^-1' if f else ''}")
+             for T, f in ((1, False), (128, False), (256, False),
+                          (256, True))]
+    cases += [("ssd", ssd, ref.ssd_chunked_ref, ref.ssd_ref,
+               ssd_inputs(2, 112, T, 64, 64, G, seed=T + G + int(f), fault=f),
+               f"B=2 H=112 T={T} P=N=64 G={G}"
+               f"{' decay e^-1' if f else ''}")
+              for T, G, f in ((1, 1, False), (128, 1, False),
+                              (256, 1, False), (256, 1, True),
+                              (128, 2, False))]
+    out = {}
+    for name, kernel, chunked, seq, args, label in cases:
+        y, S = kernel(*args, chunk=256)
+        torch.cuda.synchronize()
+        if not (torch.isfinite(y).all() and torch.isfinite(S).all()):
+            raise SystemExit(f"{name} {label}: non-finite output")
+        errs = {}
+        for form, fn in (("chunked", lambda *a: chunked(*a, chunk=256)),
+                         ("sequential", seq)):
+            yp, Sp = fn(*args)
+            errs[form] = (rel_err(y, yp), rel_err(S, Sp),
+                          max(abs_err(y, yp), abs_err(S, Sp)))
+            if max(errs[form][:2]) > REC_TOL:
+                raise SystemExit(f"{name} {label}: kernel vs {form} plain "
+                                 f"version: relative |Δ| y "
+                                 f"{errs[form][0]:.3e} state "
+                                 f"{errs[form][1]:.3e} > {REC_TOL}")
+        print(f"  {name} {label}: relative |Δ| (y, state) vs chunked "
+              f"{errs['chunked'][0]:.2e} {errs['chunked'][1]:.2e}, vs "
+              f"sequential {errs['sequential'][0]:.2e} "
+              f"{errs['sequential'][1]:.2e}", flush=True)
+        rec = out.setdefault(name, dict(cases=0, max_abs_err=0.0,
+                                        max_rel_err=0.0))
+        rec["cases"] += 1
+        rec["max_abs_err"] = max(rec["max_abs_err"], errs["chunked"][2])
+        rec["max_rel_err"] = max(rec["max_rel_err"], *errs["chunked"][:2],
+                                 *errs["sequential"][:2])
+    return out
+
+
+def recurrence_bound(name: str, args) -> tuple:
+    """Least milliseconds for one call and what sets it: every input read
+    once and y and the final state written once over the memory rate,
+    against the float32 operations over the float32 rate (WKV6: 7 per
+    (t, k, v); SSD: 5 per (t, p, n))."""
+    if name == "wkv6":
+        r, k, v, w, u, s0 = args
+        B, H, T, K = r.shape
+        V = v.shape[-1]
+        elems = 3 * r.numel() + v.numel() + u.numel() + 2 * s0.numel() + \
+            B * H * T * V
+        ops = 7 * B * H * T * K * V
+    else:
+        x, dt, A, Bm, Cm, D, s0 = args
+        B, H, T, P = x.shape
+        N = Bm.shape[-1]
+        elems = 2 * x.numel() + dt.numel() + 2 * A.numel() + \
+            2 * Bm.numel() + 2 * s0.numel()
+        ops = 5 * B * H * T * P * N
+    t_bytes = 4 * elems / HBM_BYTES_PER_S
+    t_ops = ops / F32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def time_calls(fn, reps: int) -> float:
+    """Mean milliseconds of ``fn()`` over ``reps`` back-to-back calls after
+    one warm-up, CUDA events."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def time_recurrences() -> dict:
+    """K2 and K3 at the serve shapes: the kernel's ms per launch (CUDA
+    events over 100 launches, wrapper included), the plain chunked
+    version's ms (chunk 256, 5 calls) and the bound."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd import ssd
+    from repro_torch.kernels.wkv6 import wkv6
+    out = {}
+    for label, B, T in SERVE_SHAPES:
+        for name, kernel, plain, args in (
+                ("wkv6", wkv6, ref.wkv6_chunked_ref,
+                 wkv6_inputs(B, 64, T, 64, 64, seed=9)),
+                ("ssd", ssd, ref.ssd_chunked_ref,
+                 ssd_inputs(B, 112, T, 64, 64, 1, seed=9))):
+            bound, by = recurrence_bound(name, args)
+            out.setdefault(name, {})[label] = dict(
+                batch=B, T=T,
+                ms=time_calls(lambda: kernel(*args, chunk=256), 100),
+                plain_ms=time_calls(lambda: plain(*args, chunk=256), 5),
+                bound_ms=bound, bound_by=by)
+    for name, rows in out.items():
+        print(f"  {name} timings: {json.dumps(rows)}", flush=True)
+    return out
+
+
+# ------------------------------------------------------ serving phases
+
+def kernel_wrappers() -> dict:
+    from repro_torch.kernels.level_step import level_step
+    from repro_torch.kernels.ssd import ssd
+    from repro_torch.kernels.wkv6 import wkv6
+    return dict(level_step=level_step, wkv6=wkv6, ssd=ssd)
+
+
+def reset_counts() -> None:
+    for k in kernel_wrappers().values():
+        k.reset_counts()
+
+
+def read_counts() -> dict:
+    return {n: k.launches for n, k in kernel_wrappers().items()}
+
+
+class plain_recurrences:
+    """Within the block the models' recurrences take the plain chunked
+    versions on the card (for the kernel-vs-plain comparison of a whole
+    prefill)."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops, ref
+        self.saved = ops.wkv6, ops.ssd
+        ops.wkv6 = lambda *a, chunk=64: ref.wkv6_chunked_ref(*a, chunk=chunk)
+        ops.ssd = lambda *a, chunk=64: ref.ssd_chunked_ref(*a, chunk=chunk)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+        ops.wkv6, ops.ssd = self.saved
+        return False
+
+
+class finite_watch:
+    """Counts the prefill and decode calls made through ``ModelApi`` in the
+    block and the non-finite logits they returned."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import ModelApi
+        self.calls, self.nonfinite = 0, 0
+        self.saved = ModelApi.prefill_fn, ModelApi.decode_fn
+
+        def watch(fn):
+            def inner(api, *a, **kw):
+                logits, state = fn(api, *a, **kw)
+                self.calls += 1
+                self.nonfinite += int((~torch.isfinite(logits)).sum())
+                return logits, state
+            return inner
+        ModelApi.prefill_fn = watch(self.saved[0])
+        ModelApi.decode_fn = watch(self.saved[1])
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import ModelApi
+        ModelApi.prefill_fn, ModelApi.decode_fn = self.saved
+        return False
+
+
+class block_compare:
+    """Within the block every recurrent block of ``module`` (``rwkv6`` or
+    ``mamba2``) runs twice on the same inputs, through the kernels and
+    through the plain versions; the kernels' result goes on.  Records the
+    largest relative difference of the blocks' output hidden states and of
+    their recurrent states.  (Comparing only the final logits of the two
+    paths measures the random-init model's sensitivity instead: in bf16 it
+    amplifies a rounding flip from layer to layer.)"""
+
+    def __init__(self, module):
+        self.module = module
+
+    def __enter__(self):
+        self.saved = self.module.block_apply
+        self.blocks, self.worst_h, self.worst_state = 0, 0.0, 0.0
+
+        def both(h, wb, cfg, state):
+            hk, sk = self.saved(h, wb, cfg, state)
+            with plain_recurrences():
+                hp, sp = self.saved(h, wb, cfg, state)
+            self.blocks += 1
+            self.worst_h = max(self.worst_h, rel_err(hk, hp))
+            self.worst_state = max(self.worst_state,
+                                   rel_err(sk["S"], sp["S"]))
+            return hk, sk
+        self.module.block_apply = both
+        return self
+
+    def __exit__(self, *exc):
+        self.module.block_apply = self.saved
+        return False
+
+
+def run_fixtures(expected: dict) -> list:
+    """The reduced fixture configs on the card (float32, chunk 256, two
+    prompts of 128 tokens, 2 slots) with the seeded numpy weights: the
+    greedy tokens must equal the JAX package's and the prefill logits must
+    agree within 1e-4 of their largest magnitude (the port's CPU path
+    measured <= 2e-5 against them)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import get_model
+    from repro_torch.models.module import init_params_numpy, params_from_numpy
+    from repro_torch.serve import Request, ServeEngine
+    out = []
+    for fx in expected["fixtures"]:
+        cfg = dataclasses.replace(ARCHS[fx["arch"]], **fx["overrides"])
+        api = get_model(cfg)
+        params = params_from_numpy(init_params_numpy(api.specs(), fx["seed"]),
+                                   "cuda")
+        eng = ServeEngine(api, params, batch_slots=2,
+                          max_seq=fx["prompt_len"] + fx["n_new"])
+        reqs = [Request(prompt=r["prompt"], max_tokens=fx["n_new"], rid=i)
+                for i, r in enumerate(fx["runs"])]
+        for r in reqs:
+            eng.submit(r)
+        eng.run_until_done()
+        worst = 0.0
+        for r, want in zip(reqs, fx["runs"]):
+            if r.output != want["tokens"]:
+                raise SystemExit(f"fixture {fx['arch']}: greedy tokens "
+                                 f"{r.output} != the JAX package's "
+                                 f"{want['tokens']}")
+            with torch.inference_mode():
+                logits, _ = api.prefill_fn(params, {"tokens": torch.tensor(
+                    [r.prompt], device="cuda")}, cache_len=fx["prompt_len"])
+            w = torch.tensor(want["logits"], dtype=torch.float64)
+            err = rel_err(logits[0].cpu(), w)
+            worst = max(worst, err)
+            if not np.isfinite(logits.cpu().numpy()).all() or err > 1e-4:
+                raise SystemExit(f"fixture {fx['arch']}: prefill logits "
+                                 f"differ from the JAX package's by "
+                                 f"{err:.3e} of their largest magnitude")
+        print(f"  fixture {fx['arch']}: tokens equal, logits within "
+              f"{worst:.2e}", flush=True)
+        out.append(dict(arch=fx["arch"], max_rel_err=worst))
+    return out
+
+
+def profile_serve(api, params, kernel: str) -> dict:
+    """One prefill (1 x 128 tokens) and one decode step of the full-width
+    model under ``torch.profiler``: wall seconds of each, the device's
+    busy seconds (the sum of the kernels' device times; one stream, so
+    they do not overlap), its idle share, the recurrence kernel's seconds
+    and the six kernels that took the most device time."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    prompt = torch.tensor(np.random.default_rng(2).integers(
+        1, 200, size=(1, 128)), device="cuda")
+    torch.cuda.synchronize()
+    with torch.inference_mode(), profile(activities=[
+            ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        logits, state = api.prefill_fn(params, {"tokens": prompt},
+                                       cache_len=256)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        api.decode_fn(params, state, {"tokens": logits.argmax(
+            -1, keepdim=True), "cur_index": 128})
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    dev = [(ev.key, getattr(ev, "self_device_time_total",
+                            getattr(ev, "self_cuda_time_total", 0.0)) / 1e6)
+           for ev in prof.key_averages()
+           if getattr(ev, "device_type", None) == DeviceType.CUDA]
+    busy = sum(t for _, t in dev)
+    if busy <= 0:
+        return dict(wall_s=t2 - t0, device_busy_s="not measured")
+    rec = sum(t for key, t in dev if f"{kernel}_kernel" in key)
+    return dict(prefill_wall_s=t1 - t0, decode_wall_s=t2 - t1,
+                wall_s=t2 - t0, device_busy_s=busy,
+                device_idle_share=max(0.0, 1.0 - busy / (t2 - t0)),
+                recurrence_kernel_s=rec,
+                top=sorted(dev, key=lambda kt: -kt[1])[:6])
+
+
+def serve_full_width(name: str, kernel: str, card: str) -> dict:
+    """``launch.serve.run`` at the full config of ``name`` (bf16 compute,
+    float32 masters, ssm_chunk 256): 4 slots, 8 requests of 128 tokens,
+    max_seq 256, 16 tokens each, greedy.  Every logit must be finite and
+    the recurrence kernel must have launched once per layer per prefill
+    and per decode step (every count is set to 0 just before the run and
+    read just after it).  Then one request's prefill and one decode step
+    with every block run through the kernels and through the plain
+    versions on the same inputs (``block_compare``); the end-to-end
+    prefill logits of the two paths are reported, not held."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import serve
+    from repro_torch.models import get_model
+    cfg = ARCHS[name]
+    api = get_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init(torch.Generator(device="cuda").manual_seed(0),
+                      torch.device("cuda"))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    reset_counts()
+    with finite_watch() as watch:
+        res = serve.run(cfg, requests=8, slots=4, max_seq=256, max_tokens=16,
+                        temperature=0.0, prompt_len=128, device="cuda",
+                        params=params, emit=lambda s: print("  " + s))
+    moved = read_counts()
+    st = res["stats"]
+    want = cfg.n_layers * (st["prefills"] + st["decode_steps"])
+    if moved[kernel] != want or want <= 0:
+        raise SystemExit(f"serve {name}: {kernel} launched {moved[kernel]} "
+                         f"times, expected {cfg.n_layers} layers x "
+                         f"({st['prefills']} prefills + "
+                         f"{st['decode_steps']} decode steps) = {want}")
+    if watch.nonfinite or watch.calls != st["prefills"] + st["decode_steps"]:
+        raise SystemExit(f"serve {name}: {watch.nonfinite} non-finite "
+                         f"logits in {watch.calls} calls")
+    if res["requests"] != 8 or res["tokens"] != 8 * 16:
+        raise SystemExit(f"serve {name}: {res['requests']} requests, "
+                         f"{res['tokens']} tokens")
+    # one prefill and one decode step, block by block: kernels vs plain
+    from repro_torch.models import mamba2, rwkv6
+    prompt = torch.tensor(np.random.default_rng(1).integers(
+        1, 200, size=(1, 128)), device="cuda")
+    with torch.inference_mode():
+        with block_compare(rwkv6 if kernel == "wkv6" else mamba2) as cmp:
+            lk, state = api.prefill_fn(params, {"tokens": prompt},
+                                       cache_len=256)
+            step, _ = api.decode_fn(params, state, {
+                "tokens": lk.argmax(-1, keepdim=True), "cur_index": 128})
+        with plain_recurrences():
+            lp, _ = api.prefill_fn(params, {"tokens": prompt}, cache_len=256)
+    if not (torch.isfinite(lk).all() and torch.isfinite(step).all()):
+        raise SystemExit(f"serve {name}: non-finite logits")
+    if cmp.blocks != 2 * cfg.n_layers or cmp.worst_h > SERVE_TOL or \
+            cmp.worst_state > REC_TOL:
+        raise SystemExit(f"serve {name}: {cmp.blocks} blocks, kernels vs "
+                         f"plain versions: hidden state {cmp.worst_h:.3e} "
+                         f"(> {SERVE_TOL:.3e}?), recurrent state "
+                         f"{cmp.worst_state:.3e} (> {REC_TOL}?)")
+    err = rel_err(lk, lp)
+    prof = profile_serve(api, params, kernel)
+    out = dict(
+        arch=name, params=api.n_params(), init_s=init_s,
+        prefills=st["prefills"], decode_steps=st["decode_steps"],
+        prefill_ms=1e3 * st["prefill_s"] / st["prefills"],
+        decode_ms_per_step=1e3 * st["decode_s"] / st["decode_steps"],
+        tok_per_s=res["tok_per_s"], seconds=res["seconds"],
+        tokens=res["tokens"], launches=moved,
+        block_h_rel_err=cmp.worst_h, block_state_rel_err=cmp.worst_state,
+        logits_rel_err_vs_plain=err, profile=prof,
+        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30, card=card)
+    print(f"  serve {name}: prefill {out['prefill_ms']:.2f} ms/request, "
+          f"decode {out['decode_ms_per_step']:.2f} ms/step, "
+          f"{out['tok_per_s']:.1f} tok/s; kernels vs plain: blocks "
+          f"{cmp.worst_h:.2e} (state {cmp.worst_state:.2e}), end-to-end "
+          f"logits {err:.2e}; peak "
+          f"{out['peak_gib']:.1f} GiB ({card})", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -460,6 +919,7 @@ def main() -> int:
     from repro_torch.apps import polybench
     from repro_torch.core import backend as B
     from repro_torch.core.plan import ExecPolicy
+    from repro_torch.kernels.cuda_build import build_all
     from repro_torch.kernels.level_step import level_step
     from repro_torch.launch import paper
     t_start = time.perf_counter()
@@ -472,9 +932,11 @@ def main() -> int:
               flush=True)
 
     with phase("build"):
-        level_step.build()
-        print(level_step.build_log.strip() or "  (library already built)",
-              flush=True)
+        kernels = kernel_wrappers()
+        build_all(k.lib for k in kernels.values())
+        for name, k in kernels.items():
+            print(f"  {name}:\n" + (k.build_log.strip() or
+                                    "  (library already built)"), flush=True)
 
     with phase("kernel"):
         gemm = polybench.trace_kernel("gemm", 20)
@@ -501,11 +963,13 @@ def main() -> int:
             print(f"  {key}: {json.dumps(m)}", flush=True)
         prof = profile_sweep()
         print(f"  profile: {json.dumps(prof)}", flush=True)
+        rec_checks = check_recurrences()
+        rec_times = time_recurrences()
 
     expected = json.loads((SRC / "repro_torch" / "configs" /
                            "paper_expected.json").read_text())
     with phase("main"):
-        level_step.reset_counts()
+        reset_counts()
         B.reset_stats()
         launches = run_main_path(expected, ExecPolicy.resolve(),
                                  paper.FIGURES, "float32")
@@ -525,6 +989,23 @@ def main() -> int:
         main_launches = level_step.launches
         main_calls = level_step.calls
 
+    with phase("fixture"):
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        fixtures = run_fixtures(json.loads(
+            (SRC / "repro_torch" / "configs" / "serve_expected.json")
+            .read_text()))
+
+    with phase("serve"):
+        served = [serve_full_width("rwkv6-7b", "wkv6", card),
+                  serve_full_width("zamba2-7b", "ssd", card)]
+        # the serving runs' own launches (not the comparisons after them)
+        serve_launches = {k: sum(m["launches"][k] for m in served)
+                          for k in ("wkv6", "ssd")}
+        for k in ("wkv6", "ssd"):
+            if serve_launches[k] <= 0:
+                raise SystemExit(f"the serving path never launched {k}")
+
     with phase("report"):
         m = meas["gemm_replay_f32"]
         kern = dict(
@@ -541,10 +1022,31 @@ def main() -> int:
             stats=dict(float32=f32_stats, dirty_sweep=dirty_stats,
                        float64=B.stats.snapshot()),
             measurements=meas, sweep_profile=prof, kernel_cases=n_cases)
+        recs = []
+        for name, src, tpu in (
+                ("wkv6", "src/repro_torch/csrc/wkv6.cu",
+                 "src/repro/kernels/rwkv6_wkv.py:72"),
+                ("ssd", "src/repro_torch/csrc/ssd.cu",
+                 "src/repro/kernels/mamba2_ssd.py:70")):
+            t1, t128 = rec_times[name]["T=1"], rec_times[name]["T=128"]
+            recs.append(dict(
+                name=name, route="cuda", source=src, replaces=tpu,
+                launches=serve_launches[name],
+                max_abs_err=rec_checks[name]["max_abs_err"],
+                ms=t128["ms"], plain_ms=t128["plain_ms"],
+                bound_ms=t128["bound_ms"], bound_by=t128["bound_by"],
+                library_ms=None, shape="prefill, one request, T=128",
+                ms_t1=t1["ms"], plain_ms_t1=t1["plain_ms"],
+                bound_ms_t1=t1["bound_ms"], bound_by_t1=t1["bound_by"],
+                shape_t1="decode step, 4 slots, T=1",
+                max_rel_err=rec_checks[name]["max_rel_err"],
+                kernel_cases=rec_checks[name]["cases"]))
+        print(f"  serve: {json.dumps(served)}", flush=True)
+        print(f"  fixtures: {json.dumps(fixtures)}", flush=True)
         print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
     # the last three lines: the card, the kernels, the verdict
     print(card_line(), flush=True)
-    print(json.dumps({"kernels": [kern]}), flush=True)
+    print(json.dumps({"kernels": [kern] + recs}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,0 +1,106 @@
+"""Model configurations of the model zoo: the dataclasses of the
+reference package's ``configs/base.py`` that the port's models and serving
+path read (``ModelConfig``, ``ShapeConfig``), copied so that the port
+imports nothing of the reference.
+
+``ModelConfig.use_pallas`` stays so that the field names match, but the
+port does not consult it: ``kernels/ops.py`` dispatches on the device of
+the tensors it is given (CUDA kernel on the card, plain version on the
+host).  ``dtype`` is the compute dtype's name; parameters are float32
+masters cast to it at each use.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+
+
+def _pad_to(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                 # dense | moe | ssm | hybrid | encdec | vlm
+    n_layers: int
+    d_model: int
+    n_heads: int = 0
+    n_kv_heads: int = 0
+    d_ff: int = 0
+    vocab_size: int = 32000
+    head_dim: int = 0           # 0 -> d_model // n_heads
+    qk_norm: bool = False
+    rope_theta: float = 10000.0
+    # MoE
+    n_experts: int = 0
+    top_k: int = 0
+    capacity_factor: float = 1.25
+    moe_parallelism: str = "tp"       # tp | ep  (ep = experts over 'model')
+    # attention variants
+    sliding_window: int = 0           # 0 = full attention (mixtral: 4096)
+    # ssm / hybrid
+    ssm_state: int = 0
+    ssm_head_dim: int = 64
+    attn_every: int = 0               # zamba2: shared attn block cadence
+    # enc-dec
+    n_enc_layers: int = 0
+    enc_len_cap: int = 4096
+    # vlm
+    n_patches: int = 0                # vlm: prefix patch embeddings
+    frontend_stub: bool = False
+    # numerics / implementation
+    dtype: str = "bfloat16"
+    use_pallas: bool = False          # kept so the field names match the
+                                      # reference; the port does not read it
+    attn_chunk_q: int = 2048
+    attn_chunk_kv: int = 1024
+    ssm_chunk: int = 256
+    remat: str = "block"              # none | block
+    head_pad_to: int = 0              # pad n_heads for TP divisibility
+    # beyond-paper perf knobs (EXPERIMENTS.md §Perf; default = baseline off)
+    attn_causal_skip: bool = False    # skip fully-masked KV chunks
+    moe_scatter_out: bool = False     # reduce-scatter MoE output over seq
+    pin_weight_shards: bool = False   # re-constrain per-layer weight slices
+                                      # (stops XLA replicating attn weights
+                                      # per decode step)
+
+    # ------------------------------------------------------------ derived
+    @property
+    def hd(self) -> int:
+        return self.head_dim or (self.d_model // max(self.n_heads, 1))
+
+    def padded_vocab(self, multiple: int = 16) -> int:
+        return _pad_to(self.vocab_size, multiple)
+
+    def reduced(self) -> "ModelConfig":
+        """Smoke-test-size config of the same family (per spec item f)."""
+        kw = dict(
+            n_layers=min(self.n_layers, 2),
+            d_model=64,
+            n_heads=4 if self.n_heads else 0,
+            n_kv_heads=min(self.n_kv_heads, 2) if self.n_kv_heads else 0,
+            head_dim=16 if self.n_heads else 0,
+            d_ff=128 if self.d_ff else 0,
+            vocab_size=256,
+            n_experts=min(self.n_experts, 4),
+            top_k=min(self.top_k, 2),
+            sliding_window=min(self.sliding_window, 16) if self.sliding_window else 0,
+            ssm_state=min(self.ssm_state, 8) if self.ssm_state else 0,
+            ssm_head_dim=16 if self.ssm_state or self.family in ("ssm", "hybrid") else self.ssm_head_dim,
+            attn_every=min(self.attn_every, 2) if self.attn_every else 0,
+            n_enc_layers=min(self.n_enc_layers, 2),
+            n_patches=min(self.n_patches, 8) if self.n_patches else 0,
+            attn_chunk_q=16, attn_chunk_kv=16, ssm_chunk=8,
+            enc_len_cap=32, head_pad_to=0,
+            capacity_factor=4.0,       # no token drops in smoke tests
+            dtype="float32",
+        )
+        return replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                   # train | prefill | decode

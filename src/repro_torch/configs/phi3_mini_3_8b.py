@@ -1,0 +1,8 @@
+"""Phi-3-mini 3.8B — dense, RoPE + SwiGLU [arXiv:2404.14219]."""
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="phi3-mini-3.8b", family="dense",
+    n_layers=32, d_model=3072, n_heads=32, n_kv_heads=32, d_ff=8192,
+    vocab_size=32064, rope_theta=10000.0,
+)

@@ -1,0 +1,10 @@
+"""Zamba2-7B — hybrid: 81 Mamba2 blocks + shared attention block every 6
+[arXiv:2411.15242].  ssm_state=64."""
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="zamba2-7b", family="hybrid",
+    n_layers=81, d_model=3584, n_heads=32, n_kv_heads=32, d_ff=14336,
+    vocab_size=32000, head_dim=112, ssm_state=64, ssm_head_dim=64,
+    attn_every=6,
+)

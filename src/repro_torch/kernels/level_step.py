@@ -20,40 +20,16 @@ level CSR directly, so nothing is padded.
 What bounds the kernel: the number of dependent levels, not bytes or
 operations (see the note in the CUDA source).
 
-The shared library is built at first use with ``nvcc`` into ``build/`` at
-the root of the checkout, under a name that carries the source's hash, so
-an edited source is never served by a stale library.
+The shared library is built at first use by ``cuda_build.CudaLibrary``.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import threading
-from pathlib import Path
 from typing import Optional
 
 import torch
 
-_SRC = Path(__file__).resolve().parents[1] / "csrc" / "level_step.cu"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
-              "-Xptxas", "-v")
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    raise RuntimeError("nvcc not found on PATH or under $CUDA_HOME/bin; the "
-                       "level kernel cannot be built")
+from .cuda_build import CudaLibrary, KernelWrapper
 
 
 def _np_max(a: torch.Tensor, b) -> torch.Tensor:
@@ -113,58 +89,17 @@ _ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int32, ctypes.c_void_p,
                                      ctypes.POINTER(ctypes.c_int64)]
 
 
-class LevelStep:
+class LevelStep(KernelWrapper):
     """The CUDA level kernel behind one callable, with its launch counts
     and its build."""
 
     def __init__(self) -> None:
-        self.launches = 0
-        self.calls = 0
-        self.build_log = ""
-        self._lib = None
-        self._lock = threading.Lock()
-
-    def reset_counts(self) -> None:
-        self.launches = 0
-        self.calls = 0
-
-    # --------------------------------------------------------------- build
-    def build(self) -> ctypes.CDLL:
-        """Compile ``csrc/level_step.cu`` (once per source hash) and load
-        it.  ``build_log`` keeps what ``nvcc -Xptxas -v`` printed."""
-        with self._lock:
-            if self._lib is not None:
-                return self._lib
-            src = _SRC.read_bytes()
-            tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()
-                                 ).hexdigest()[:12]
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            lib_path = BUILD_DIR / f"liblevel_step-{tag}.so"
-            if not lib_path.exists():
-                fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-                os.close(fd)
-                try:
-                    res = subprocess.run(
-                        [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(_SRC)],
-                        capture_output=True, text=True)
-                    self.build_log = res.stdout + res.stderr
-                    if res.returncode != 0:
-                        raise RuntimeError(
-                            f"nvcc failed ({res.returncode}):\n"
-                            f"{self.build_log}")
-                    os.replace(tmp, lib_path)
-                finally:
-                    if os.path.exists(tmp):
-                        os.unlink(tmp)
-            lib = ctypes.CDLL(str(lib_path))
-            for name in ("level_step_f32", "level_step_f64"):
-                fn = getattr(lib, name)
-                fn.argtypes = _ARGTYPES
-                fn.restype = ctypes.c_int
-            lib.level_step_error_string.argtypes = [ctypes.c_int]
-            lib.level_step_error_string.restype = ctypes.c_char_p
-            self._lib = lib
-            return lib
+        # -fmad=false: each finish is one IEEE add, never a fused one
+        super().__init__(CudaLibrary(
+            "level_step",
+            {name: (_ARGTYPES, ctypes.c_int)
+             for name in ("level_step_f32", "level_step_f64")},
+            extra_flags=("-fmad=false",)))
 
     # -------------------------------------------------------------- launch
     def __call__(self, lv, F: torch.Tensor, clamp: bool = True,
@@ -204,10 +139,7 @@ class LevelStep:
                 int(bool(clamp)), stream, ctypes.byref(launched))
         self.calls += 1
         self.launches += int(launched.value)
-        if err != 0:
-            msg = lib.level_step_error_string(err).decode()
-            raise RuntimeError(f"level_step kernel launch failed: {msg} "
-                               f"(cudaError {err})")
+        self.lib.check(err, "level_step kernel launch")
         return F
 
     @staticmethod

@@ -1,0 +1,42 @@
+"""Dispatch of the model zoo's recurrence kernels, by the device of the
+tensors: a CUDA tensor goes to the hand-written kernel (``wkv6.py``,
+``ssd.py``), a CPU tensor to the plain version (the chunked forms of
+``ref.py``, which the reference package's models run on the CPU).  There
+is no fallback between the two: a failed build or launch raises.  The
+configs' ``use_pallas`` is not consulted.
+
+``flash_attention`` (the reference's K4) is not ported yet.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import ref
+from .ssd import ssd as ssd_kernel
+from .wkv6 import wkv6 as wkv6_kernel
+
+
+def _device_type(*tensors: torch.Tensor) -> str:
+    types = {t.device.type for t in tensors}
+    if len(types) != 1 or types - {"cpu", "cuda"}:
+        raise ValueError(f"inputs must all be on the CPU or all on CUDA, "
+                         f"got {sorted(types)}")
+    return types.pop()
+
+
+def wkv6(r, k, v, w, u, state, *, chunk: int = 64):
+    """RWKV6 WKV recurrence.  r,k,w: (B,H,T,K); v: (B,H,T,V); u: (H,K);
+    state: (B,H,K,V), all float32.  Returns (y (B,H,T,V), final state)."""
+    args = (r, k, v, w, u, state)
+    if _device_type(*args) == "cpu":
+        return ref.wkv6_chunked_ref(*args, chunk=chunk)
+    return wkv6_kernel(*(a.contiguous() for a in args), chunk=chunk)
+
+
+def ssd(x, dt, A, Bm, Cm, D, state, *, chunk: int = 64):
+    """Mamba2 SSD recurrence.  x: (B,H,T,P); dt: (B,H,T); A: (H,);
+    Bm,Cm: (B,G,T,N); D: (H,); state: (B,H,P,N), all float32."""
+    args = (x, dt, A, Bm, Cm, D, state)
+    if _device_type(*args) == "cpu":
+        return ref.ssd_chunked_ref(*args, chunk=chunk)
+    return ssd_kernel(*(a.contiguous() for a in args), chunk=chunk)

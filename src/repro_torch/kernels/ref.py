@@ -1,0 +1,136 @@
+"""Plain PyTorch versions of the two recurrence kernels, ports of the
+reference package's ``kernels/ref.py``.  Shapes follow the kernels'
+conventions:
+
+  wkv6:  r,k,w: (B,H,T,K), v: (B,H,T,V), u: (H,K), state: (B,H,K,V)
+         recurrence  S_t = diag(w_t) S_{t-1} + k_t v_t^T
+                     y_t = r_t (S_{t-1} + diag(u) k_t v_t^T)
+  ssd:   x: (B,H,T,P), dt: (B,H,T), B,C: (B,G,T,N), A: (H,) (negative),
+         state: (B,H,P,N)
+         recurrence  S_t = exp(A dt_t) S_{t-1} + dt_t x_t B_t^T
+                     y_t = S_t C_t + D x_t
+
+The chunked forms are what the reference's models run on the CPU, and
+what the port runs on the CPU (``kernels/ops.py``).  They take decay
+*differences* ``exp(cs_t - cs_s)`` inside a chunk, never ``exp(-cs)``
+alone, so they stay finite at any chunk length.  The sequential forms are
+the recurrence itself, the algorithm the CUDA kernels run.
+"""
+from __future__ import annotations
+
+import torch
+
+
+# ------------------------------------------------------------------- RWKV6
+
+def wkv6_ref(r, k, v, w, u, state):
+    """Sequential form.  Returns (y: (B,H,T,V), final state)."""
+    T = r.shape[2]
+    S = state
+    ys = []
+    for t in range(T):
+        rt, kt, vt, wt = r[:, :, t], k[:, :, t], v[:, :, t], w[:, :, t]
+        kv = kt[..., :, None] * vt[..., None, :]           # (B,H,K,V)
+        ys.append(torch.einsum("bhk,bhkv->bhv", rt,
+                               S + u[None, :, :, None] * kv))
+        S = wt[..., :, None] * S + kv
+    return torch.stack(ys, dim=2), S
+
+
+def _chunk_len(T: int, chunk: int) -> int:
+    C = min(chunk, T)
+    while T % C:
+        C -= 1
+    return C
+
+
+def wkv6_chunked_ref(r, k, v, w, u, state, chunk: int = 64):
+    """Chunked parallel form: dense work inside a chunk of C tokens, the
+    state carried from chunk to chunk."""
+    B, H, T, K = r.shape
+    V = v.shape[-1]
+    C = _chunk_len(T, chunk)
+    n = T // C
+    rc, kc, vc, wc = (a.reshape(B, H, n, C, -1) for a in (r, k, v, w))
+    logw = torch.log(torch.clamp_min(wc, 1e-38))          # (B,H,n,C,K)
+    csum = torch.cumsum(logw, dim=3)                      # inclusive
+    tri = torch.tril(torch.ones((C, C), dtype=torch.bool, device=r.device),
+                     diagonal=-1)
+    S = state
+    ys = []
+    for i in range(n):
+        rt, kt, vt, cs = rc[:, :, i], kc[:, :, i], vc[:, :, i], csum[:, :, i]
+        cs_prev = torch.nn.functional.pad(cs, (0, 0, 1, 0))[:, :, :-1]
+        # inter-chunk: y_t += (r_t * exp(cs_{t-1})) @ S
+        y = torch.einsum("bhck,bhkv->bhcv", rt * torch.exp(cs_prev), S)
+        # intra-chunk: M[t,s] = sum_k r_t[k] exp(cs_{t-1}-cs_s)[k] k_s[k], s<t
+        ratio = torch.exp(cs_prev[:, :, :, None, :] - cs[:, :, None, :, :])
+        M = torch.einsum("bhck,bhcsk,bhsk->bhcs", rt, ratio, kt)
+        M = torch.where(tri[None, None], M, 0.0)
+        # diagonal (bonus) term: (r_t * u) . k_t
+        diag = torch.einsum("bhck,hk,bhck->bhc", rt, u, kt)
+        y = y + torch.einsum("bhcs,bhsv->bhcv", M, vt) + diag[..., None] * vt
+        # S' = diag(exp(cs_C)) S + sum_s diag(exp(cs_C - cs_s)) k_s v_s^T
+        decay_all = torch.exp(cs[:, :, -1:, :])           # (B,H,1,K)
+        kdec = kt * torch.exp(cs[:, :, -1:, :] - cs)      # (B,H,C,K)
+        S = decay_all[:, :, 0, :, None] * S + \
+            torch.einsum("bhck,bhcv->bhkv", kdec, vt)
+        ys.append(y)
+    return torch.stack(ys, dim=2).reshape(B, H, T, V), S
+
+
+# ------------------------------------------------------------------- Mamba2
+
+def ssd_ref(x, dt, A, Bm, Cm, D, state):
+    """Sequential form.  x:(B,H,T,P) dt:(B,H,T) A:(H,) Bm/Cm:(B,G,T,N)
+    D:(H,) state:(B,H,P,N).  Head h reads group h // (H // G)."""
+    H, T = x.shape[1], x.shape[2]
+    rep = H // Bm.shape[1]
+    S = state
+    ys = []
+    for t in range(T):
+        xt, dtt = x[:, :, t], dt[:, :, t]                  # (B,H,P), (B,H)
+        bth = torch.repeat_interleave(Bm[:, :, t], rep, dim=1)
+        cth = torch.repeat_interleave(Cm[:, :, t], rep, dim=1)
+        decay = torch.exp(A[None, :] * dtt)                # (B,H)
+        S = decay[..., None, None] * S + \
+            (dtt[..., None] * xt)[..., :, None] * bth[..., None, :]
+        ys.append(torch.einsum("bhpn,bhn->bhp", S, cth) +
+                  D[None, :, None] * xt)
+    return torch.stack(ys, dim=2), S
+
+
+def ssd_chunked_ref(x, dt, A, Bm, Cm, D, state, chunk: int = 64):
+    """Chunked (state-space dual) form."""
+    B_, H, T, P = x.shape
+    G, N = Bm.shape[1], Bm.shape[-1]
+    rep = H // G
+    C = _chunk_len(T, chunk)
+    n = T // C
+    xc = x.reshape(B_, H, n, C, P)
+    dtc = dt.reshape(B_, H, n, C)
+    Bc = torch.repeat_interleave(Bm, rep, dim=1).reshape(B_, H, n, C, N)
+    Cc = torch.repeat_interleave(Cm, rep, dim=1).reshape(B_, H, n, C, N)
+    a = A[None, :, None, None] * dtc                      # (B,H,n,C) negative
+    csum = torch.cumsum(a, dim=3)
+    tri = torch.tril(torch.ones((C, C), dtype=torch.bool, device=x.device))
+    S = state
+    ys = []
+    for i in range(n):
+        xt, dtt, bt, ct, cs = (xc[:, :, i], dtc[:, :, i], Bc[:, :, i],
+                               Cc[:, :, i], csum[:, :, i])
+        # inter-chunk
+        y = torch.einsum("bhcn,bhpn->bhcp", ct * torch.exp(cs)[..., None], S)
+        # intra-chunk: L[t,s] = exp(cs_t - cs_s) for s <= t
+        L = torch.exp(cs[:, :, :, None] - cs[:, :, None, :])
+        L = torch.where(tri[None, None], L, 0.0)
+        M = torch.einsum("bhcn,bhsn->bhcs", ct, bt) * L
+        y = y + torch.einsum("bhcs,bhs,bhsp->bhcp", M, dtt, xt)
+        # state update
+        dec_all = torch.exp(cs[:, :, -1])                 # (B,H)
+        kdec = torch.exp(cs[:, :, -1:] - cs)              # (B,H,C)
+        S = dec_all[..., None, None] * S + torch.einsum(
+            "bhc,bhc,bhcp,bhcn->bhpn", kdec, dtt, xt, bt)
+        ys.append(y)
+    y = torch.stack(ys, dim=2).reshape(B_, H, T, P)
+    return y + D[None, :, None, None] * x, S

@@ -1,0 +1,88 @@
+"""Serving launcher: the continuous-batching engine over a selected
+architecture, with weights made from a seed (nothing is downloaded).
+
+Usage:
+  EDAN_TORCH_BACKEND=cpu PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch rwkv6-7b                  # the smoke-size config, on the host
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \\
+      --no-reduced                     # full width, on the card
+
+The device comes from ``core.backend.select_backend`` (``cuda`` unless
+``$EDAN_TORCH_BACKEND`` or ``device`` says otherwise; ``cuda`` without a
+card raises).  Families not ported yet raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..configs import ARCHS, ModelConfig
+from ..core.backend import device_for
+from ..models import get_model
+from ..serve import Request, ServeEngine
+
+
+def run(cfg: ModelConfig, requests: int = 8, slots: int = 4,
+        max_seq: int = 64, max_tokens: int = 16, temperature: float = 0.0,
+        prompt_len: int = 8, device: Optional[str] = None, params=None,
+        emit=print) -> dict:
+    """Serve ``requests`` seeded prompts of ``prompt_len`` tokens and
+    return what happened: the finished requests, token counts, seconds,
+    the engine's ``stats`` and the device's name.  Prompts and sampling
+    are seeded with 0; ``params`` are made with ``init`` from seed 0
+    unless given (set-up, not timed)."""
+    dev = torch.device(device) if device is not None else device_for()
+    api = get_model(cfg)
+    if params is None:
+        gen = torch.Generator(device=dev).manual_seed(0)
+        params = api.init(gen, dev)
+    eng = ServeEngine(api, params, batch_slots=slots, max_seq=max_seq)
+    rng = np.random.default_rng(0)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for i in range(requests):
+        eng.submit(Request(prompt=rng.integers(1, 200, size=prompt_len)
+                           .tolist(), max_tokens=max_tokens,
+                           temperature=temperature, rid=i))
+    done = eng.run_until_done()
+    dt = time.perf_counter() - t0
+    toks = sum(len(r.output) for r in done)
+    emit(f"{len(done)} requests, {toks} tokens, {dt:.1f}s "
+         f"({toks / dt:.1f} tok/s)")
+    return dict(done=done, requests=len(done), tokens=toks, seconds=dt,
+                tok_per_s=toks / dt, stats=dict(eng.stats),
+                device=(torch.cuda.get_device_name(dev)
+                        if dev.type == "cuda" else "cpu"))
+
+
+def parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="rwkv6-7b", choices=sorted(ARCHS))
+    ap.add_argument("--reduced", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="serve the smoke-size config (--no-reduced: the "
+                         "full config)")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--max-seq", type=int, default=64)
+    ap.add_argument("--max-tokens", type=int, default=16)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    return ap
+
+
+def main(argv=None):
+    args = parser().parse_args(argv)
+    cfg = ARCHS[args.arch]
+    if args.reduced:
+        cfg = cfg.reduced()
+    run(cfg, requests=args.requests, slots=args.slots, max_seq=args.max_seq,
+        max_tokens=args.max_tokens, temperature=args.temperature)
+
+
+if __name__ == "__main__":
+    main()

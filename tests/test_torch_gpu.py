@@ -1,5 +1,6 @@
-"""Tests of the port that need the card: the CUDA level kernel against its
-plain version, and the engine on the card against the engine on the host.
+"""Tests of the port that need the card: the CUDA kernels (level step,
+WKV6, SSD) against their plain versions, the engine on the card against
+the engine on the host, and the serving path on the card.
 
 Marked ``gpu``; each test asks a fixture whether torch sees a CUDA device
 and skips when it does not.  Run on a machine with the card:
@@ -113,3 +114,76 @@ def test_engine_on_card_equals_engine_on_host(card, dtype, monkeypatch):
     for k in on_host:
         assert np.array_equal(np.asarray(on_card[k]),
                               np.asarray(on_host[k])), k
+
+
+# ------------------------------------------------ recurrence kernels (K2, K3)
+
+def _rel(a, b):
+    return ((a.double() - b.double()).abs().max() /
+            b.double().abs().max()).item()
+
+
+@pytest.mark.parametrize("T", [1, 37, 128])
+def test_wkv6_kernel_vs_plain(card, T):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.wkv6 import wkv6
+    g = torch.Generator(device=card).manual_seed(T)
+    B, H, K, V = 2, 3, 64, 64
+    r, k, v = (torch.randn(B, H, T, n, generator=g, device=card)
+               for n in (K, K, V))
+    w = torch.rand(B, H, T, K, generator=g, device=card) * 0.5 + 0.45
+    u = torch.randn(H, K, generator=g, device=card) * 0.1
+    s0 = torch.randn(B, H, K, V, generator=g, device=card) * 0.1
+    n0 = wkv6.launches
+    y, S = wkv6(r, k, v, w, u, s0)
+    assert wkv6.launches == n0 + 1
+    yp, Sp = ref.wkv6_ref(r, k, v, w, u, s0)
+    assert _rel(y, yp) < 1e-5 and _rel(S, Sp) < 1e-5
+
+
+@pytest.mark.parametrize("G", [1, 2])
+def test_ssd_kernel_vs_plain(card, G):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd import ssd
+    g = torch.Generator(device=card).manual_seed(G)
+    B, H, T, P, N = 2, 4, 50, 64, 64
+    x = torch.randn(B, H, T, P, generator=g, device=card)
+    dt = torch.rand(B, H, T, generator=g, device=card)
+    A = -torch.rand(H, generator=g, device=card) - 0.5
+    Bm, Cm = (torch.randn(B, G, T, N, generator=g, device=card) * 0.4
+              for _ in range(2))
+    D = torch.randn(H, generator=g, device=card)
+    s0 = torch.randn(B, H, P, N, generator=g, device=card) * 0.1
+    y, S = ssd(x, dt, A, Bm, Cm, D, s0)
+    yp, Sp = ref.ssd_ref(x, dt, A, Bm, Cm, D, s0)
+    assert _rel(y, yp) < 1e-5 and _rel(S, Sp) < 1e-5
+
+
+def test_recurrence_wrappers_reject_bad_inputs(card):
+    from repro_torch.kernels.wkv6 import wkv6
+    z = torch.zeros(1, 2, 4, 64, device=card)
+    u, s0 = torch.zeros(2, 64, device=card), torch.zeros(1, 2, 64, 64,
+                                                          device=card)
+    with pytest.raises(ValueError, match="float32"):
+        wkv6(z.double(), z, z, z, u, s0)
+    with pytest.raises(ValueError, match="contiguous"):
+        wkv6(z.transpose(2, 3).contiguous().transpose(2, 3), z, z, z, u, s0)
+    with pytest.raises(ValueError, match="K in"):
+        zk = torch.zeros(1, 2, 4, 48, device=card)
+        wkv6(zk, zk, z, zk, torch.zeros(2, 48, device=card),
+             torch.zeros(1, 2, 48, 64, device=card))
+
+
+def test_serving_on_the_card_launches_the_kernels(card):
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels.ssd import ssd
+    from repro_torch.kernels.wkv6 import wkv6
+    from repro_torch.launch import serve
+    for name, kern in (("rwkv6-7b", wkv6), ("zamba2-7b", ssd)):
+        cfg = ARCHS[name].reduced()
+        n0 = kern.launches
+        res = serve.run(cfg, requests=3, slots=2, max_seq=32, max_tokens=4,
+                        device="cuda", emit=lambda s: None)
+        steps = res["stats"]["prefills"] + res["stats"]["decode_steps"]
+        assert kern.launches - n0 == cfg.n_layers * steps
+        assert res["tokens"] == 12

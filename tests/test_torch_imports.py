@@ -23,7 +23,8 @@ def _imported_roots(path: Path) -> set:
 
 def test_the_port_has_files():
     names = {p.name for p in FILES}
-    assert {"backend.py", "level_step.py", "paper.py",
+    assert {"backend.py", "level_step.py", "paper.py", "wkv6.py", "ssd.py",
+            "rwkv6.py", "zamba2.py", "engine.py", "serve.py",
             "chip_smoke.py"} <= names
 
 

@@ -1,0 +1,221 @@
+"""The port's model zoo (the ``ssm`` and ``hybrid`` families) against the
+reference package on the CPU: parameter specs, parameter counts, and
+forward / prefill / decode of rwkv6 and zamba2 at reduced width with the
+reference's ``init`` weights carried across by ``params_from_numpy``.
+
+Both packages run the same float32 algorithm at reduced width (the
+chunked recurrences on the CPU), summed in other orders, so logits and
+decode state are held to 1e-4 of their largest magnitude (measured
+<= 2e-5).
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import ARCHS as REF_ARCHS
+from repro.models import get_model as ref_model
+from repro.configs.base import ShapeConfig as RefShape
+from repro.models.module import is_spec
+from repro_torch.configs import ARCHS, get_config
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.models import PORTED, get_model
+from repro_torch.models.module import (init_params, init_params_numpy,
+                                       param_bytes, params_from_numpy,
+                                       tree_leaves)
+
+
+@pytest.fixture(autouse=True)
+def _on_the_host(monkeypatch):
+    monkeypatch.setenv("EDAN_TORCH_BACKEND", "cpu")
+
+
+TOL = 1e-4
+PORTED_ARCHS = sorted(n for n, c in ARCHS.items() if c.family in PORTED)
+
+
+def rel_err(got, want) -> float:
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def _spec_table(specs, ref: bool) -> dict:
+    """{path: (shape, logical, init, scale, dtype name)} of a spec tree."""
+    if ref:
+        flat = jax.tree_util.tree_flatten_with_path(specs, is_leaf=is_spec)[0]
+        return {jax.tree_util.keystr(p): (s.shape, s.logical, s.init, s.scale,
+                                          jnp.dtype(s.dtype).name)
+                for p, s in flat}
+    out = {}
+
+    def walk(t, path):
+        for k, v in t.items():
+            if isinstance(v, dict):
+                walk(v, path + f"[{k!r}]")
+            else:
+                out[path + f"[{k!r}]"] = (v.shape, v.logical, v.init,
+                                          v.scale, str(v.dtype).split(".")[1])
+    walk(specs, "")
+    return out
+
+
+def test_registry_names_every_architecture():
+    assert sorted(ARCHS) == sorted(REF_ARCHS)
+    for name in ARCHS:
+        assert dataclasses.asdict(ARCHS[name]) == \
+            dataclasses.asdict(REF_ARCHS[name])
+        assert dataclasses.asdict(ARCHS[name].reduced()) == \
+            dataclasses.asdict(REF_ARCHS[name].reduced())
+    with pytest.raises(KeyError):
+        get_config("no-such-model")
+
+
+@pytest.mark.parametrize("reduced", [False, True])
+@pytest.mark.parametrize("name", PORTED_ARCHS)
+def test_specs_equal_reference(name, reduced):
+    cfg, rcfg = ARCHS[name], REF_ARCHS[name]
+    if reduced:
+        cfg, rcfg = cfg.reduced(), rcfg.reduced()
+    assert _spec_table(get_model(cfg).specs(), False) == \
+        _spec_table(ref_model(rcfg).specs(), True)
+    shape = ShapeConfig("decode", 64, 3, "decode")
+    rshape = RefShape("decode", 64, 3, "decode")
+    assert _spec_table(get_model(cfg).cache_specs(shape), False) == \
+        _spec_table(ref_model(rcfg).cache_specs(rshape), True)
+
+
+def test_full_width_parameter_counts():
+    assert get_model(ARCHS["rwkv6-7b"]).n_params() == 7_534_546_944
+    assert get_model(ARCHS["zamba2-7b"]).n_params() == 6_634_892_880
+    assert param_bytes(get_model(ARCHS["rwkv6-7b"]).specs()) == \
+        4 * 7_534_546_944
+
+
+def test_unported_families_raise():
+    for name, cfg in ARCHS.items():
+        if cfg.family not in PORTED:
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                get_model(cfg)
+
+
+def test_init_distributions():
+    cfg = ARCHS["zamba2-7b"].reduced()
+    api = get_model(cfg)
+    p = api.init(torch.Generator().manual_seed(0), torch.device("cpu"))
+    q = params_from_numpy(init_params_numpy(api.specs(), 0))
+    again = init_params(api.specs(), torch.Generator().manual_seed(0))
+    for s, a, b, c in zip(tree_leaves(api.specs()), tree_leaves(p),
+                          tree_leaves(q), tree_leaves(again)):
+        assert a.shape == b.shape == s.shape and a.dtype == b.dtype
+        assert torch.equal(a, c)
+        if s.init == "zeros":
+            assert not a.any() and not b.any()
+        elif s.init == "ones":
+            assert (a == 1).all() and (b == 1).all()
+        elif a.numel() >= 4096:
+            for t in (a, b):
+                assert abs(t.std().item() / s.std - 1) < 0.1
+
+
+CASES = [("rwkv6-7b", None), ("zamba2-7b", None), ("zamba2-7b", 3)]
+
+
+def _pair(name, n_layers):
+    cfg, rcfg = ARCHS[name].reduced(), REF_ARCHS[name].reduced()
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+        rcfg = dataclasses.replace(rcfg, n_layers=n_layers)
+    rapi, api = ref_model(rcfg), get_model(cfg)
+    rp = rapi.init(jax.random.PRNGKey(3))
+    return rapi, api, rp, params_from_numpy(
+        jax.tree_util.tree_map(np.asarray, rp))
+
+
+def _leaves_with_paths(ref_tree, port_tree):
+    """(path, reference leaf, port leaf) for every leaf of the reference's
+    tree (None leaves skipped)."""
+    flat = jax.tree_util.tree_flatten_with_path(ref_tree)[0]
+    out = []
+    for path, leaf in flat:
+        t = port_tree
+        for p in path:
+            t = t[p.key if hasattr(p, "key") else p.idx]
+        out.append((jax.tree_util.keystr(path), leaf, t))
+    return out
+
+
+@pytest.mark.parametrize("name,n_layers", CASES)
+def test_prefill_and_decode_match_reference(name, n_layers):
+    rapi, api, rp, p = _pair(name, n_layers)
+    toks = np.random.default_rng(0).integers(0, 256, (2, 12)).astype(np.int32)
+    rl, rst = jax.jit(rapi.prefill_fn, static_argnames="cache_len")(
+        rp, {"tokens": jnp.asarray(toks)}, cache_len=16)
+    with torch.inference_mode():
+        pl, pst = api.prefill_fn(p, {"tokens": torch.from_numpy(toks).long()},
+                                 cache_len=16)
+    assert rel_err(pl, rl) < TOL
+    for key, a, b in _leaves_with_paths(rst, pst):
+        assert rel_err(b.float(), a) < TOL, key
+    nxt = np.argmax(np.asarray(rl), -1).astype(np.int32)[:, None]
+    rl2, rst2 = jax.jit(rapi.decode_fn)(rp, rst, {
+        "tokens": jnp.asarray(nxt), "cur_index": jnp.int32(12)})
+    with torch.inference_mode():
+        pl2, pst2 = api.decode_fn(p, pst, {"tokens": torch.from_numpy(nxt)
+                                           .long(), "cur_index": 12})
+    assert rel_err(pl2, rl2) < TOL
+    for key, a, b in _leaves_with_paths(rst2, pst2):
+        assert rel_err(b.float(), a) < TOL, key
+
+
+@pytest.mark.parametrize("name,n_layers", CASES)
+def test_forward_matches_reference_and_prefill_decode(name, n_layers):
+    """forward equals the reference's; prefill of T tokens then one decode
+    step gives forward's logits at positions T-1 and T."""
+    rapi, api, rp, p = _pair(name, n_layers)
+    fam = {"ssm": "rwkv6", "hybrid": "zamba2"}[api.cfg.family]
+    rmod = __import__(f"repro.models.{fam}", fromlist=["forward"])
+    pmod = __import__(f"repro_torch.models.{fam}", fromlist=["forward"])
+    toks = np.random.default_rng(1).integers(0, 256, (2, 10)).astype(np.int32)
+    t = torch.from_numpy(toks).long()
+    with torch.inference_mode():
+        full = pmod.forward(p, t, api.cfg)
+        last, st = api.prefill_fn(p, {"tokens": t[:, :9]}, cache_len=10)
+        step, _ = api.decode_fn(p, st, {"tokens": t[:, 9:], "cur_index": 9})
+    assert rel_err(full, rmod.forward(rp, jnp.asarray(toks), rapi.cfg)) < TOL
+    assert rel_err(last, full[:, 8]) < TOL
+    assert rel_err(step, full[:, 9]) < TOL
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_layers_match_reference(dtype):
+    """rms_norm, rope, the chunked attention (causal, windowed, offset) and
+    the decode attention against the reference's, same inputs; bf16 in
+    bf16, held to one bf16 rounding of the largest magnitude."""
+    from repro.models import layers as rl
+    from repro_torch.models import layers as pl
+    tol = TOL if dtype == "float32" else 2.0 ** -7
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((2, 16, 4, 8)).astype(np.float32)
+    k = rng.standard_normal((2, 16, 2, 8)).astype(np.float32)
+    v = rng.standard_normal((2, 16, 2, 8)).astype(np.float32)
+    w = rng.standard_normal(8).astype(np.float32)
+    jd, td = jnp.dtype(dtype), getattr(torch, dtype)
+    J = [jnp.asarray(a).astype(jd) for a in (x, k, v)]
+    T = [torch.from_numpy(a).to(td) for a in (x, k, v)]
+
+    def same(got, want):
+        assert rel_err(got.float(), np.asarray(want, np.float32)) < tol
+
+    same(pl.rms_norm(T[0], torch.from_numpy(w)), rl.rms_norm(J[0], w))
+    pos = np.arange(16) + 3
+    same(pl.rope(T[0], torch.from_numpy(pos)), rl.rope(J[0], jnp.asarray(pos)))
+    for kw in (dict(causal=True), dict(causal=False),
+               dict(causal=True, window=5), dict(causal=True, q_offset=4)):
+        same(pl.attention_ref(*T, chunk_kv=4, **kw),
+             rl.attention_ref(*J, chunk_kv=4, **kw))
+    same(pl.attention_decode(T[0][:, :1], T[1], T[2], 9),
+         rl.attention_decode(J[0][:, :1], J[1], J[2], 9))
