@@ -4,10 +4,10 @@
 Phases, each timed; any failure ends the run with a non-zero exit:
 
 1. card    — the card's name and power limit (``nvidia-smi``).
-2. build   — compile the three CUDA sources (``csrc/level_step.cu``,
-             ``csrc/wkv6.cu``, ``csrc/ssd.cu``) with nvcc, one process each,
-             all started together, and print ptxas's register and
-             shared-memory report.
+2. build   — compile the four CUDA sources (``csrc/level_step.cu``,
+             ``csrc/wkv6.cu``, ``csrc/ssd.cu``, ``csrc/flash_attention.cu``)
+             with nvcc, one process each, all started together, and print
+             ptxas's register and shared-memory report.
 3. kernel  — the CUDA level kernel against its plain PyTorch version on the
              card, float32 and float64, with and without slot chains, ready
              times and the clamp, on seeded random DAGs and on the real
@@ -19,7 +19,13 @@ Phases, each timed; any failure ends the run with a non-zero exit:
              full-width heads, T = 1, 128, 256, a nonzero initial state,
              the decay-e^-1 input on which the TPU kernels overflow, and a
              grouped SSD case: finite, within ``REC_TOL``; and their times
-             at the serve shapes.
+             at the serve shapes.  Then the flash-attention kernel against
+             its plain version in float32 and bf16 (``ATT_CASES``: the
+             served models' prefill shapes, zamba2's shared attention,
+             heads of 96, a window, non-causal T=128 over S=384, a ragged
+             T=200): finite, within ``ATT_TOL``; and its times at the
+             served shapes beside the plain version's and one
+             ``scaled_dot_product_attention`` call's.
 4. main    — the paper runner (``repro_torch.launch.paper``) at the paper's
              sizes: PolyBench PAPER_15 at N=20 and HPCG 16^3 x 6 iterations
              (1.79M vertices) under the default float32 replay policy, then
@@ -31,17 +37,23 @@ Phases, each timed; any failure ends the run with a non-zero exit:
              value must equal ``src/repro_torch/configs/paper_expected.json``
              (the JAX package's results), and the kernel's launch counter
              must grow in every figure.
-5. fixture — the serving path at two small fixture configs (float32) with
-             seeded numpy weights: greedy tokens equal and prefill logits
-             close to ``src/repro_torch/configs/serve_expected.json`` (the
-             JAX package's results).
+5. fixture — the serving path at five small fixture configs (float32) with
+             seeded numpy weights (rwkv6, zamba2, qwen3, granite-moe with
+             token drops, internvl2 with its 256 patch positions): greedy
+             tokens equal and prefill logits close to
+             ``src/repro_torch/configs/serve_expected.json`` (the JAX
+             package's results).
 6. serve   — the serving launcher (``repro_torch.launch.serve.run``) at
-             full width: rwkv6-7b, then zamba2-7b (bf16 compute, float32
-             master weights from a seed), 4 slots, 8 requests of 128 tokens,
-             16 tokens each.  Every logit finite, the recurrence kernel
-             launched once per layer per prefill and decode step, one
-             prefill's logits through the kernels close to the plain
-             versions'; prefill ms, decode ms per step and tok/s.
+             full width: rwkv6-7b, zamba2-7b, qwen3-0.6b,
+             granite-moe-1b-a400m and internvl2-2b (bf16 compute, float32
+             master weights from a seed), 4 slots, 8 requests of 128 text
+             tokens (internvl2: after 256 patch positions), 16 tokens
+             each.  Every logit finite, each kernel launched exactly as
+             often as the model's layers say (K4 once per attention layer
+             per prefill, never in decode), one prefill and one decode
+             step through the kernels held block by block to the plain
+             versions'; prefill ms, decode ms per step, tok/s, peak memory
+             and the profile's busy and idle share.
 7. report  — the card line, the ``{"kernels": [...]}`` line, and last the
              ``{"ok": true, "device": {...}}`` line.
 
@@ -630,13 +642,143 @@ def time_recurrences() -> dict:
     return out
 
 
+# ------------------------------------------------- flash attention phase
+
+#: K4 against its plain version on the card: max |Δ| over max |plain|.
+#: Both run the float32 online softmax over KV tiles of 64 keys, summed in
+#: other orders (float32: ~1e-7); in bf16 the output's rounding to bf16
+#: (at most 2^-8 of a value) can flip.
+ATT_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
+#: (label, B, T, S, H, KV, hd, causal, window)
+ATT_CASES = (
+    ("qwen3-0.6b", 1, 128, 128, 16, 8, 128, True, 0),
+    ("granite-moe-1b-a400m", 1, 128, 128, 16, 8, 64, True, 0),
+    ("internvl2-2b", 1, 384, 384, 16, 8, 128, True, 0),
+    ("zamba2-7b shared attention", 1, 128, 128, 32, 32, 112, True, 0),
+    ("hd=96 (phi3)", 2, 128, 128, 32, 32, 96, True, 0),
+    ("window 64", 2, 256, 256, 16, 8, 128, True, 64),
+    ("non-causal T=128 S=384", 2, 128, 384, 16, 16, 64, False, 0),
+    ("ragged T=200", 2, 200, 200, 16, 8, 128, True, 0),
+)
+#: the prefill shapes of the served models, one request: (label, T, H, KV,
+#: hd), bf16, causal
+ATT_SERVE_SHAPES = (("qwen3-0.6b", 128, 16, 8, 128),
+                    ("granite-moe-1b-a400m", 128, 16, 8, 64),
+                    ("internvl2-2b", 384, 16, 8, 128),
+                    ("zamba2-7b", 128, 32, 32, 112))
+BF16_OPS_PER_S = 989e12            # H100 SXM dense bf16 tensor cores
+
+
+def att_inputs(B, T, S, H, KV, hd, dtype, seed):
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn(B, T, H, hd, generator=g, device="cuda")
+    k = torch.randn(B, S, KV, hd, generator=g, device="cuda")
+    v = torch.randn(B, S, KV, hd, generator=g, device="cuda")
+    return q.to(dtype), k.to(dtype), v.to(dtype)
+
+
+def check_attention() -> dict:
+    """K4 against ``flash_attention_plain`` (KV blocks of 64, as the
+    kernel's tiles) on the card at every case of ``ATT_CASES``, in float32
+    and bf16: finite, within ``ATT_TOL``.  Returns the cases, the largest
+    |Δ| and the largest relative |Δ|."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import flash_attention_plain
+    out = dict(cases=0, max_abs_err=0.0, max_rel_err=0.0)
+    for i, (label, B, T, S, H, KV, hd, causal, window) in \
+            enumerate(ATT_CASES):
+        errs = []
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = att_inputs(B, T, S, H, KV, hd, dtype, seed=i)
+            o = flash_attention(q, k, v, causal=causal, window=window)
+            torch.cuda.synchronize()
+            name = str(dtype).replace("torch.", "")
+            if not torch.isfinite(o).all() or o.dtype != dtype:
+                raise SystemExit(f"flash_attention {label} {name}: "
+                                 f"non-finite output or dtype {o.dtype}")
+            p = flash_attention_plain(q, k, v, causal=causal, window=window,
+                                      block_kv=64)
+            rel = rel_err(o, p)
+            errs.append(f"{name} {rel:.2e}")
+            if rel > ATT_TOL[name]:
+                raise SystemExit(f"flash_attention {label} {name}: kernel "
+                                 f"vs plain version: relative |Δ| "
+                                 f"{rel:.3e} > {ATT_TOL[name]:.3e}")
+            out["cases"] += 1
+            out["max_abs_err"] = max(out["max_abs_err"], abs_err(o, p))
+            out["max_rel_err"] = max(out["max_rel_err"], rel)
+        print(f"  flash_attention {label} (B={B} T={T} S={S} H={H} KV={KV} "
+              f"hd={hd} causal={causal} window={window}): relative |Δ| vs "
+              f"plain {', '.join(errs)}", flush=True)
+    return out
+
+
+def attention_bound(B, T, S, H, KV, hd, causal, window, itemsize) -> tuple:
+    """Least milliseconds for one call and what sets it: q, k, v read once
+    and o written once over the memory rate, against the operations the
+    mask lets through (2 for q.k and 2 for p.v per head dimension and
+    unmasked (query, key) pair) over the bf16 tensor-core rate."""
+    import torch
+    qpos, kpos = torch.arange(T)[:, None], torch.arange(S)[None, :]
+    mask = torch.ones((T, S), dtype=torch.bool)
+    if causal:
+        mask &= qpos >= kpos
+    if window:
+        mask &= qpos - kpos < window
+    ops = 4 * hd * int(mask.sum()) * B * H
+    t_bytes = itemsize * (2 * B * T * H * hd + 2 * B * S * KV * hd) / \
+        HBM_BYTES_PER_S
+    t_ops = ops / BF16_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def time_attention() -> dict:
+    """K4 at the served prefill shapes in bf16: the kernel's ms per launch
+    (CUDA events over 100 launches, wrapper included), the plain
+    version's (5 calls), the bound, and as ``library_ms`` one
+    ``scaled_dot_product_attention`` call on (B,H,T,hd) copies of the
+    same inputs (timed here only; the port never calls it), held to the
+    kernel's output within SERVE_TOL."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import flash_attention_plain
+    out = {}
+    for label, T, H, KV, hd in ATT_SERVE_SHAPES:
+        q, k, v = att_inputs(1, T, T, H, KV, hd, torch.bfloat16, seed=9)
+        qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
+                                                  enable_gqa=True)
+        lib_err = rel_err(sdpa().transpose(1, 2), flash_attention(q, k, v))
+        if lib_err > SERVE_TOL:
+            raise SystemExit(f"scaled_dot_product_attention disagrees with "
+                             f"the kernel at {label}: {lib_err:.3e}")
+        bound, by = attention_bound(1, T, T, H, KV, hd, True, 0, 2)
+        out[label] = dict(
+            T=T, H=H, KV=KV, hd=hd, dtype="bfloat16",
+            ms=time_calls(lambda: flash_attention(q, k, v), 100),
+            plain_ms=time_calls(lambda: flash_attention_plain(
+                q, k, v, block_kv=64), 5),
+            library_ms=time_calls(sdpa, 100), library_rel_err=lib_err,
+            bound_ms=bound, bound_by=by)
+    print(f"  flash_attention timings: {json.dumps(out)}", flush=True)
+    return out
+
+
 # ------------------------------------------------------ serving phases
 
 def kernel_wrappers() -> dict:
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.level_step import level_step
     from repro_torch.kernels.ssd import ssd
     from repro_torch.kernels.wkv6 import wkv6
-    return dict(level_step=level_step, wkv6=wkv6, ssd=ssd)
+    return dict(level_step=level_step, wkv6=wkv6, ssd=ssd,
+                flash_attention=flash_attention)
 
 
 def reset_counts() -> None:
@@ -648,21 +790,31 @@ def read_counts() -> dict:
     return {n: k.launches for n, k in kernel_wrappers().items()}
 
 
-class plain_recurrences:
-    """Within the block the models' recurrences take the plain chunked
-    versions on the card (for the kernel-vs-plain comparison of a whole
-    prefill)."""
+def plain_attention(q, k, v, *, causal=True, window=0, block_q=128,
+                    block_kv=128):
+    """What ``ops.flash_attention`` runs for CPU tensors (the models' plain
+    path), on the card."""
+    from repro_torch.models.layers import attention_ref
+    return attention_ref(q, k, v, causal=causal, window=window,
+                         chunk_kv=block_kv)
+
+
+class plain_kernels:
+    """Within the block the models' kernels take their plain versions on
+    the card: the chunked recurrences and ``attention_ref`` (for the
+    kernel-vs-plain comparison of a whole prefill)."""
 
     def __enter__(self):
         from repro_torch.kernels import ops, ref
-        self.saved = ops.wkv6, ops.ssd
+        self.saved = ops.wkv6, ops.ssd, ops.flash_attention
         ops.wkv6 = lambda *a, chunk=64: ref.wkv6_chunked_ref(*a, chunk=chunk)
         ops.ssd = lambda *a, chunk=64: ref.ssd_chunked_ref(*a, chunk=chunk)
+        ops.flash_attention = plain_attention
         return self
 
     def __exit__(self, *exc):
         from repro_torch.kernels import ops
-        ops.wkv6, ops.ssd = self.saved
+        ops.wkv6, ops.ssd, ops.flash_attention = self.saved
         return False
 
 
@@ -694,30 +846,32 @@ class finite_watch:
 
 
 class block_compare:
-    """Within the block every recurrent block of ``module`` (``rwkv6`` or
-    ``mamba2``) runs twice on the same inputs, through the kernels and
-    through the plain versions; the kernels' result goes on.  Records the
-    largest relative difference of the blocks' output hidden states and of
-    their recurrent states.  (Comparing only the final logits of the two
-    paths measures the random-init model's sensitivity instead: in bf16 it
-    amplifies a rounding flip from layer to layer.)"""
+    """Within the block every ``block_apply`` of ``module`` (``rwkv6``,
+    ``mamba2`` or ``transformer``) runs twice on the same inputs, through
+    the kernels and through the plain versions; the kernels' result goes
+    on.  Records the largest relative difference of the blocks' output
+    hidden states and, for a recurrent block, of their recurrent states.
+    (Comparing only the final logits of the two paths measures the
+    random-init model's sensitivity instead: in bf16 it amplifies a
+    rounding flip from layer to layer.)"""
 
-    def __init__(self, module):
-        self.module = module
+    def __init__(self, module, recurrent: bool):
+        self.module, self.recurrent = module, recurrent
 
     def __enter__(self):
         self.saved = self.module.block_apply
         self.blocks, self.worst_h, self.worst_state = 0, 0.0, 0.0
 
-        def both(h, wb, cfg, state):
-            hk, sk = self.saved(h, wb, cfg, state)
-            with plain_recurrences():
-                hp, sp = self.saved(h, wb, cfg, state)
+        def both(*args):
+            out_k = self.saved(*args)
+            with plain_kernels():
+                out_p = self.saved(*args)
             self.blocks += 1
-            self.worst_h = max(self.worst_h, rel_err(hk, hp))
-            self.worst_state = max(self.worst_state,
-                                   rel_err(sk["S"], sp["S"]))
-            return hk, sk
+            self.worst_h = max(self.worst_h, rel_err(out_k[0], out_p[0]))
+            if self.recurrent:
+                self.worst_state = max(self.worst_state,
+                                       rel_err(out_k[1]["S"], out_p[1]["S"]))
+            return out_k
         self.module.block_apply = both
         return self
 
@@ -726,19 +880,44 @@ class block_compare:
         return False
 
 
+class attention_compare:
+    """Within the block every ``ops.flash_attention`` call runs K4 and the
+    plain path's ``attention_ref`` on the same q, k, v; K4's result goes
+    on.  Records the calls and the largest relative difference."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self.saved = ops.flash_attention
+        self.calls, self.worst = 0, 0.0
+
+        def both(q, k, v, **kw):
+            o = self.saved(q, k, v, **kw)
+            self.calls += 1
+            self.worst = max(self.worst, rel_err(o, plain_attention(
+                q, k, v, **kw)))
+            return o
+        ops.flash_attention = both
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+        ops.flash_attention = self.saved
+        return False
+
+
 def run_fixtures(expected: dict) -> list:
-    """The reduced fixture configs on the card (float32, chunk 256, two
-    prompts of 128 tokens, 2 slots) with the seeded numpy weights: the
-    greedy tokens must equal the JAX package's and the prefill logits must
-    agree within 1e-4 of their largest magnitude (the port's CPU path
-    measured <= 2e-5 against them)."""
+    """The fixture configs on the card (float32, two prompts each, 2 slots)
+    with the seeded numpy weights: the greedy tokens must equal the JAX
+    package's and the prefill logits must agree within 1e-4 of their
+    largest magnitude (the port's CPU path measured <= 2e-5 against
+    them)."""
     import dataclasses
     import numpy as np
     import torch
     from repro_torch.configs import ARCHS
     from repro_torch.models import get_model
     from repro_torch.models.module import init_params_numpy, params_from_numpy
-    from repro_torch.serve import Request, ServeEngine
+    from repro_torch.serve import Request, ServeEngine, prefill_batch
     out = []
     for fx in expected["fixtures"]:
         cfg = dataclasses.replace(ARCHS[fx["arch"]], **fx["overrides"])
@@ -759,8 +938,9 @@ def run_fixtures(expected: dict) -> list:
                                  f"{r.output} != the JAX package's "
                                  f"{want['tokens']}")
             with torch.inference_mode():
-                logits, _ = api.prefill_fn(params, {"tokens": torch.tensor(
-                    [r.prompt], device="cuda")}, cache_len=fx["prompt_len"])
+                logits, _ = api.prefill_fn(params, prefill_batch(
+                    cfg, torch.tensor([r.prompt], device="cuda")),
+                    cache_len=fx["prompt_len"])
             w = torch.tensor(want["logits"], dtype=torch.float64)
             err = rel_err(logits[0].cpu(), w)
             worst = max(worst, err)
@@ -774,28 +954,66 @@ def run_fixtures(expected: dict) -> list:
     return out
 
 
-def profile_serve(api, params, kernel: str) -> dict:
-    """One prefill (1 x 128 tokens) and one decode step of the full-width
+#: the full-width serving runs: (arch, its recurrence kernel or None, text
+#: tokens per prompt, max_seq).  internvl2-2b's prompts also carry its 256
+#: patch positions (384 tokens).
+SERVED = (("rwkv6-7b", "wkv6", 128, 256), ("zamba2-7b", "ssd", 128, 256),
+          ("qwen3-0.6b", None, 128, 256),
+          ("granite-moe-1b-a400m", None, 128, 256),
+          ("internvl2-2b", None, 128, 512))
+KERNEL_NAMES = {"wkv6": "wkv6_kernel", "ssd": "ssd_kernel",
+                "flash_attention": "flash_attention_kernel"}
+
+
+def prompt_tokens(cfg, prompt_len: int, seed: int):
+    """One prompt on the card as ``launch.serve.run`` builds them: a vlm's
+    n_patches placeholders (0), then ``prompt_len`` seeded tokens."""
+    import numpy as np
+    import torch
+    P = cfg.n_patches if cfg.family == "vlm" else 0
+    toks = [0] * P + np.random.default_rng(seed).integers(
+        1, 200, size=prompt_len).tolist()
+    return torch.tensor([toks], device="cuda")
+
+
+def expected_launches(cfg, kernel, st: dict) -> dict:
+    """Each kernel's launches in one serving run: a recurrence kernel once
+    per layer per prefill and decode step; K4 once per attention layer
+    (zamba2: per shared-attention application) per prefill, never in a
+    decode step; K1 never."""
+    from repro_torch.models import zamba2
+    calls = st["prefills"] + st["decode_steps"]
+    want = dict.fromkeys(read_counts(), 0)
+    if kernel:
+        want[kernel] = cfg.n_layers * calls
+    if cfg.family == "hybrid":
+        want["flash_attention"] = zamba2.n_attn_applications(cfg) * \
+            st["prefills"]
+    elif kernel is None:
+        want["flash_attention"] = cfg.n_layers * st["prefills"]
+    return want
+
+
+def profile_serve(api, params, prompt, max_seq: int) -> dict:
+    """One prefill of ``prompt`` and one decode step of the full-width
     model under ``torch.profiler``: wall seconds of each, the device's
     busy seconds (the sum of the kernels' device times; one stream, so
-    they do not overlap), its idle share, the recurrence kernel's seconds
-    and the six kernels that took the most device time."""
-    import numpy as np
+    they do not overlap), its idle share, the port's kernels' seconds and
+    the six kernels that took the most device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    prompt = torch.tensor(np.random.default_rng(2).integers(
-        1, 200, size=(1, 128)), device="cuda")
+    from repro_torch.serve import prefill_batch
     torch.cuda.synchronize()
     with torch.inference_mode(), profile(activities=[
             ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        logits, state = api.prefill_fn(params, {"tokens": prompt},
-                                       cache_len=256)
+        logits, state = api.prefill_fn(params, prefill_batch(api.cfg, prompt),
+                                       cache_len=max_seq)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         api.decode_fn(params, state, {"tokens": logits.argmax(
-            -1, keepdim=True), "cur_index": 128})
+            -1, keepdim=True), "cur_index": prompt.shape[1]})
         torch.cuda.synchronize()
         t2 = time.perf_counter()
     dev = [(ev.key, getattr(ev, "self_device_time_total",
@@ -805,29 +1023,34 @@ def profile_serve(api, params, kernel: str) -> dict:
     busy = sum(t for _, t in dev)
     if busy <= 0:
         return dict(wall_s=t2 - t0, device_busy_s="not measured")
-    rec = sum(t for key, t in dev if f"{kernel}_kernel" in key)
+    kern = {name: sum(t for key, t in dev if fn in key)
+            for name, fn in KERNEL_NAMES.items()}
     return dict(prefill_wall_s=t1 - t0, decode_wall_s=t2 - t1,
                 wall_s=t2 - t0, device_busy_s=busy,
                 device_idle_share=max(0.0, 1.0 - busy / (t2 - t0)),
-                recurrence_kernel_s=rec,
+                kernel_s={k: t for k, t in kern.items() if t > 0},
                 top=sorted(dev, key=lambda kt: -kt[1])[:6])
 
 
-def serve_full_width(name: str, kernel: str, card: str) -> dict:
+def serve_full_width(name: str, kernel, prompt_len: int, max_seq: int,
+                     card: str) -> dict:
     """``launch.serve.run`` at the full config of ``name`` (bf16 compute,
-    float32 masters, ssm_chunk 256): 4 slots, 8 requests of 128 tokens,
-    max_seq 256, 16 tokens each, greedy.  Every logit must be finite and
-    the recurrence kernel must have launched once per layer per prefill
-    and per decode step (every count is set to 0 just before the run and
-    read just after it).  Then one request's prefill and one decode step
-    with every block run through the kernels and through the plain
-    versions on the same inputs (``block_compare``); the end-to-end
-    prefill logits of the two paths are reported, not held."""
-    import numpy as np
+    float32 masters from seed 0): 4 slots, 8 requests of ``prompt_len``
+    text tokens (a vlm's after its patch positions), 16 tokens each,
+    greedy.  Every logit must be finite and every kernel must have
+    launched exactly as ``expected_launches`` says (every count is set to
+    0 just before the run and read just after it).  Then one request's
+    prefill and one decode step with every block run through the kernels
+    and through the plain versions on the same inputs (``block_compare``)
+    and every K4 call held to ``attention_ref`` (``attention_compare``):
+    the attention outputs and the blocks' outputs within SERVE_TOL, the
+    recurrent states within REC_TOL.  The end-to-end prefill logits of the
+    two paths are reported, not held."""
     import torch
     from repro_torch.configs import ARCHS
     from repro_torch.launch import serve
-    from repro_torch.models import get_model
+    from repro_torch.models import get_model, mamba2, rwkv6, transformer
+    from repro_torch.serve import prefill_batch
     cfg = ARCHS[name]
     api = get_model(cfg)
     torch.cuda.reset_peak_memory_stats()
@@ -838,17 +1061,17 @@ def serve_full_width(name: str, kernel: str, card: str) -> dict:
     init_s = time.perf_counter() - t0
     reset_counts()
     with finite_watch() as watch:
-        res = serve.run(cfg, requests=8, slots=4, max_seq=256, max_tokens=16,
-                        temperature=0.0, prompt_len=128, device="cuda",
-                        params=params, emit=lambda s: print("  " + s))
+        res = serve.run(cfg, requests=8, slots=4, max_seq=max_seq,
+                        max_tokens=16, temperature=0.0, prompt_len=prompt_len,
+                        device="cuda", params=params,
+                        emit=lambda s: print("  " + s))
     moved = read_counts()
     st = res["stats"]
-    want = cfg.n_layers * (st["prefills"] + st["decode_steps"])
-    if moved[kernel] != want or want <= 0:
-        raise SystemExit(f"serve {name}: {kernel} launched {moved[kernel]} "
-                         f"times, expected {cfg.n_layers} layers x "
-                         f"({st['prefills']} prefills + "
-                         f"{st['decode_steps']} decode steps) = {want}")
+    want = expected_launches(cfg, kernel, st)
+    if moved != want or st["prefills"] != 8:
+        raise SystemExit(f"serve {name}: launches {moved}, expected {want} "
+                         f"({cfg.n_layers} layers, {st['prefills']} "
+                         f"prefills, {st['decode_steps']} decode steps)")
     if watch.nonfinite or watch.calls != st["prefills"] + st["decode_steps"]:
         raise SystemExit(f"serve {name}: {watch.nonfinite} non-finite "
                          f"logits in {watch.calls} calls")
@@ -856,43 +1079,55 @@ def serve_full_width(name: str, kernel: str, card: str) -> dict:
         raise SystemExit(f"serve {name}: {res['requests']} requests, "
                          f"{res['tokens']} tokens")
     # one prefill and one decode step, block by block: kernels vs plain
-    from repro_torch.models import mamba2, rwkv6
-    prompt = torch.tensor(np.random.default_rng(1).integers(
-        1, 200, size=(1, 128)), device="cuda")
+    module = {"wkv6": rwkv6, "ssd": mamba2}.get(kernel, transformer)
+    prompt = prompt_tokens(cfg, prompt_len, seed=1)
+    batch = prefill_batch(cfg, prompt)
     with torch.inference_mode():
-        with block_compare(rwkv6 if kernel == "wkv6" else mamba2) as cmp:
-            lk, state = api.prefill_fn(params, {"tokens": prompt},
-                                       cache_len=256)
+        with attention_compare() as att, \
+                block_compare(module, kernel is not None) as cmp:
+            lk, state = api.prefill_fn(params, batch, cache_len=max_seq)
             step, _ = api.decode_fn(params, state, {
-                "tokens": lk.argmax(-1, keepdim=True), "cur_index": 128})
-        with plain_recurrences():
-            lp, _ = api.prefill_fn(params, {"tokens": prompt}, cache_len=256)
+                "tokens": lk.argmax(-1, keepdim=True),
+                "cur_index": prompt.shape[1]})
+        with plain_kernels():
+            lp, _ = api.prefill_fn(params, batch, cache_len=max_seq)
     if not (torch.isfinite(lk).all() and torch.isfinite(step).all()):
         raise SystemExit(f"serve {name}: non-finite logits")
-    if cmp.blocks != 2 * cfg.n_layers or cmp.worst_h > SERVE_TOL or \
-            cmp.worst_state > REC_TOL:
-        raise SystemExit(f"serve {name}: {cmp.blocks} blocks, kernels vs "
-                         f"plain versions: hidden state {cmp.worst_h:.3e} "
-                         f"(> {SERVE_TOL:.3e}?), recurrent state "
-                         f"{cmp.worst_state:.3e} (> {REC_TOL}?)")
+    want_att = want["flash_attention"] // st["prefills"]
+    # a transformer's decode step calls no block_apply: it runs no kernel
+    want_blocks = (2 if kernel else 1) * cfg.n_layers
+    if (att.calls != want_att or att.worst > SERVE_TOL or
+            cmp.blocks != want_blocks or cmp.worst_h > SERVE_TOL or
+            cmp.worst_state > REC_TOL):
+        raise SystemExit(
+            f"serve {name}: kernels vs plain versions: {att.calls} "
+            f"attention calls (expected {want_att}) within "
+            f"{att.worst:.3e}; {cmp.blocks} blocks (expected "
+            f"{want_blocks}), hidden state {cmp.worst_h:.3e} (> "
+            f"{SERVE_TOL:.3e}?), recurrent state {cmp.worst_state:.3e} "
+            f"(> {REC_TOL}?)")
     err = rel_err(lk, lp)
-    prof = profile_serve(api, params, kernel)
+    prof = profile_serve(api, params, prompt_tokens(cfg, prompt_len, seed=2),
+                         max_seq)
     out = dict(
-        arch=name, params=api.n_params(), init_s=init_s,
+        arch=name, family=cfg.family, params=api.n_params(), init_s=init_s,
+        prompt_tokens=int(prompt.shape[1]), max_seq=max_seq,
         prefills=st["prefills"], decode_steps=st["decode_steps"],
         prefill_ms=1e3 * st["prefill_s"] / st["prefills"],
         decode_ms_per_step=1e3 * st["decode_s"] / st["decode_steps"],
         tok_per_s=res["tok_per_s"], seconds=res["seconds"],
         tokens=res["tokens"], launches=moved,
-        block_h_rel_err=cmp.worst_h, block_state_rel_err=cmp.worst_state,
+        attention_rel_err=att.worst, attention_calls=att.calls,
+        block_h_rel_err=cmp.worst_h,
+        block_state_rel_err=cmp.worst_state,
         logits_rel_err_vs_plain=err, profile=prof,
         peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30, card=card)
     print(f"  serve {name}: prefill {out['prefill_ms']:.2f} ms/request, "
           f"decode {out['decode_ms_per_step']:.2f} ms/step, "
-          f"{out['tok_per_s']:.1f} tok/s; kernels vs plain: blocks "
-          f"{cmp.worst_h:.2e} (state {cmp.worst_state:.2e}), end-to-end "
-          f"logits {err:.2e}; peak "
-          f"{out['peak_gib']:.1f} GiB ({card})", flush=True)
+          f"{out['tok_per_s']:.1f} tok/s; kernels vs plain: attention "
+          f"{att.worst:.2e} ({att.calls} calls), blocks {cmp.worst_h:.2e} "
+          f"(state {cmp.worst_state:.2e}), end-to-end logits {err:.2e}; "
+          f"peak {out['peak_gib']:.1f} GiB ({card})", flush=True)
     del params
     torch.cuda.empty_cache()
     return out
@@ -965,6 +1200,8 @@ def main() -> int:
         print(f"  profile: {json.dumps(prof)}", flush=True)
         rec_checks = check_recurrences()
         rec_times = time_recurrences()
+        att_checks = check_attention()
+        att_times = time_attention()
 
     expected = json.loads((SRC / "repro_torch" / "configs" /
                            "paper_expected.json").read_text())
@@ -997,13 +1234,12 @@ def main() -> int:
             .read_text()))
 
     with phase("serve"):
-        served = [serve_full_width("rwkv6-7b", "wkv6", card),
-                  serve_full_width("zamba2-7b", "ssd", card)]
+        served = [serve_full_width(*run, card) for run in SERVED]
         # the serving runs' own launches (not the comparisons after them)
         serve_launches = {k: sum(m["launches"][k] for m in served)
-                          for k in ("wkv6", "ssd")}
-        for k in ("wkv6", "ssd"):
-            if serve_launches[k] <= 0:
+                          for k in ("wkv6", "ssd", "flash_attention")}
+        for k, n in serve_launches.items():
+            if n <= 0:
                 raise SystemExit(f"the serving path never launched {k}")
 
     with phase("report"):
@@ -1041,6 +1277,22 @@ def main() -> int:
                 shape_t1="decode step, 4 slots, T=1",
                 max_rel_err=rec_checks[name]["max_rel_err"],
                 kernel_cases=rec_checks[name]["cases"]))
+        t = att_times["qwen3-0.6b"]
+        recs.append(dict(
+            name="flash_attention", route="cuda",
+            source="src/repro_torch/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention.py:72",
+            launches=serve_launches["flash_attention"],
+            launches_per_arch={m["arch"]: m["launches"]["flash_attention"]
+                               for m in served},
+            max_abs_err=att_checks["max_abs_err"],
+            max_rel_err=att_checks["max_rel_err"],
+            kernel_cases=att_checks["cases"],
+            ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+            bound_by=t["bound_by"], library_ms=t["library_ms"],
+            shape="qwen3-0.6b prefill, one request, T=128 H=16 KV=8 hd=128 "
+                  "bf16 causal",
+            timings=att_times))
         print(f"  serve: {json.dumps(served)}", flush=True)
         print(f"  fixtures: {json.dumps(fixtures)}", flush=True)
         print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)

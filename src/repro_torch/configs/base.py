@@ -69,6 +69,12 @@ class ModelConfig:
     def hd(self) -> int:
         return self.head_dim or (self.d_model // max(self.n_heads, 1))
 
+    @property
+    def padded_heads(self) -> int:
+        if self.head_pad_to:
+            return _pad_to(self.n_heads, self.head_pad_to)
+        return self.n_heads
+
     def padded_vocab(self, multiple: int = 16) -> int:
         return _pad_to(self.vocab_size, multiple)
 

@@ -1,17 +1,17 @@
-"""Dispatch of the model zoo's recurrence kernels, by the device of the
-tensors: a CUDA tensor goes to the hand-written kernel (``wkv6.py``,
-``ssd.py``), a CPU tensor to the plain version (the chunked forms of
-``ref.py``, which the reference package's models run on the CPU).  There
-is no fallback between the two: a failed build or launch raises.  The
-configs' ``use_pallas`` is not consulted.
-
-``flash_attention`` (the reference's K4) is not ported yet.
+"""Dispatch of the model zoo's kernels, by the device of the tensors: a
+CUDA tensor goes to the hand-written kernel (``wkv6.py``, ``ssd.py``,
+``flash_attention.py``), a CPU tensor to what the reference package's
+models run on the CPU (the chunked recurrences of ``ref.py``,
+``models.layers.attention_ref``).  There is no fallback between the two:
+a failed build or launch raises.  The configs' ``use_pallas`` is not
+consulted.
 """
 from __future__ import annotations
 
 import torch
 
 from . import ref
+from .flash_attention import flash_attention as flash_attention_kernel
 from .ssd import ssd as ssd_kernel
 from .wkv6 import wkv6 as wkv6_kernel
 
@@ -40,3 +40,19 @@ def ssd(x, dt, A, Bm, Cm, D, state, *, chunk: int = 64):
     if _device_type(*args) == "cpu":
         return ref.ssd_chunked_ref(*args, chunk=chunk)
     return ssd_kernel(*(a.contiguous() for a in args), chunk=chunk)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    block_q: int = 128, block_kv: int = 128):
+    """Attention from position 0.  q: (B,T,H,hd); k,v: (B,S,KV,hd) ->
+    (B,T,H,hd) in q's dtype.  On the CPU ``attention_ref`` with KV chunks
+    of ``block_kv`` (what the reference's ``ops.flash_attention`` runs
+    without Pallas); on the card the CUDA kernel, which reads the tensors
+    with their strides."""
+    if _device_type(q, k, v) == "cpu":
+        # imported here: the models package imports this module
+        from ..models.layers import attention_ref
+        return attention_ref(q, k, v, causal=causal, window=window,
+                             chunk_kv=block_kv)
+    return flash_attention_kernel(q, k, v, causal=causal, window=window,
+                                  block_q=block_q, block_kv=block_kv)

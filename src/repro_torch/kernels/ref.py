@@ -1,6 +1,7 @@
-"""Plain PyTorch versions of the two recurrence kernels, ports of the
-reference package's ``kernels/ref.py``.  Shapes follow the kernels'
-conventions:
+"""Plain PyTorch versions of the model zoo's kernels: the two recurrence
+kernels, ports of the reference package's ``kernels/ref.py``, and blocked
+flash attention, what the reference's ``kernels/flash_attention.py``
+computes.  Shapes follow the kernels' conventions:
 
   wkv6:  r,k,w: (B,H,T,K), v: (B,H,T,V), u: (H,K), state: (B,H,K,V)
          recurrence  S_t = diag(w_t) S_{t-1} + k_t v_t^T
@@ -9,6 +10,8 @@ conventions:
          state: (B,H,P,N)
          recurrence  S_t = exp(A dt_t) S_{t-1} + dt_t x_t B_t^T
                      y_t = S_t C_t + D x_t
+  flash attention:  q: (B,T,H,hd), k,v: (B,S,KV,hd); q head h reads KV
+         head h*KV//H; online softmax over KV blocks
 
 The chunked forms are what the reference's models run on the CPU, and
 what the port runs on the CPU (``kernels/ops.py``).  They take decay
@@ -134,3 +137,73 @@ def ssd_chunked_ref(x, dt, A, Bm, Cm, D, state, chunk: int = 64):
         ys.append(y)
     y = torch.stack(ys, dim=2).reshape(B_, H, T, P)
     return y + D[None, :, None, None] * x, S
+
+
+# --------------------------------------------------------- flash attention
+
+_NEG_INF = -1e30
+
+
+def check_attention_domain(T: int, S: int, window: int) -> None:
+    """Raise unless every query row has at least one key it may attend to
+    (S >= 1, and with a window T < S + window).  A row with none has no
+    defined softmax: the TPU kernel averages every value for it and a
+    kernel that skips masked blocks would average fewer."""
+    if window < 0:
+        raise ValueError(f"window must be >= 0, got {window}")
+    if S < 1 and T > 0:
+        raise ValueError("attention over an empty key sequence")
+    if window and T >= S + window:
+        raise ValueError(f"window {window}: query rows at or past S - 1 + "
+                         f"window = {S - 1 + window} would see no key "
+                         f"(T={T}, S={S})")
+
+
+def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
+                          block_q: int = 128, block_kv: int = 128):
+    """What the TPU kernel ``flash_attention_pallas`` computes, for any T
+    and S: q, k, v in float32; an online softmax over KV blocks of
+    ``block_kv`` keys with the (m, l, acc) state in float32; the mask
+    ``qpos >= kpos`` (``causal``) and ``qpos - kpos < window``
+    (``window`` > 0); masked scores -1e30; the output ``acc / max(l,
+    1e-30)`` cast to q's dtype.  Unlike ``layers.attention_ref`` the
+    probabilities stay in float32 for the product with v.
+
+    q: (B,T,H,hd); k, v: (B,S,KV,hd) -> (B,T,H,hd).  The CUDA kernel's
+    yardstick on the card; never on the models' path."""
+    B, T, H, hd = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    check_attention_domain(T, S, window)
+    dev = q.device
+    scale = hd ** -0.5
+    heads = torch.arange(H, device=dev) * KV // H
+    qf = q.float()
+    kf, vf = k.float()[:, :, heads], v.float()[:, :, heads]   # (B,S,H,hd)
+    out = torch.empty((B, T, H, hd), dtype=torch.float32, device=dev)
+    for q0 in range(0, T, block_q):
+        qb = qf[:, q0:q0 + block_q]
+        qpos = q0 + torch.arange(qb.shape[1], device=dev)
+        m = torch.full((B, H, qb.shape[1]), _NEG_INF, device=dev)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((B, H, qb.shape[1], hd), device=dev)
+        for k0 in range(0, S, block_kv):
+            kb, vb = kf[:, k0:k0 + block_kv], vf[:, k0:k0 + block_kv]
+            s = torch.einsum("bqhd,bkhd->bhqk", qb, kb) * scale
+            kpos = k0 + torch.arange(kb.shape[1], device=dev)
+            mask = torch.ones((qb.shape[1], kb.shape[1]), dtype=torch.bool,
+                              device=dev)
+            if causal:
+                mask &= qpos[:, None] >= kpos[None, :]
+            if window:
+                mask &= qpos[:, None] - kpos[None, :] < window
+            s = torch.where(mask, s, _NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum("bhqk,bkhd->bhqd",
+                                                       p, vb)
+            m = m_new
+        out[:, q0:q0 + block_q] = (acc / torch.clamp_min(l, 1e-30)[..., None]
+                                   ).transpose(1, 2)
+    return out.to(q.dtype)

@@ -7,6 +7,12 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \\
       --no-reduced                     # full width, on the card
 
+Archs: rwkv6-7b, zamba2-7b and the transformer families (qwen3-0.6b,
+granite-moe-1b-a400m, internvl2-2b, phi3-mini-3.8b; mixtral-8x7b and the
+deepseek models need more than one card's memory with float32 masters at
+full width).  A vlm's prompts are ``n_patches`` placeholder tokens (0),
+which the patch prefix replaces, then ``prompt_len`` text tokens.
+
 The device comes from ``core.backend.select_backend`` (``cuda`` unless
 ``$EDAN_TORCH_BACKEND`` or ``device`` says otherwise; ``cuda`` without a
 card raises).  Families not ported yet raise ``NotImplementedError``.
@@ -27,14 +33,23 @@ from ..serve import Request, ServeEngine
 
 
 def run(cfg: ModelConfig, requests: int = 8, slots: int = 4,
-        max_seq: int = 64, max_tokens: int = 16, temperature: float = 0.0,
-        prompt_len: int = 8, device: Optional[str] = None, params=None,
-        emit=print) -> dict:
-    """Serve ``requests`` seeded prompts of ``prompt_len`` tokens and
-    return what happened: the finished requests, token counts, seconds,
-    the engine's ``stats`` and the device's name.  Prompts and sampling
-    are seeded with 0; ``params`` are made with ``init`` from seed 0
-    unless given (set-up, not timed)."""
+        max_seq: Optional[int] = None, max_tokens: int = 16,
+        temperature: float = 0.0, prompt_len: int = 8,
+        device: Optional[str] = None, params=None, emit=print) -> dict:
+    """Serve ``requests`` seeded prompts of ``prompt_len`` text tokens (a
+    vlm's after its ``n_patches`` placeholders) and return what happened:
+    the finished requests, token counts, seconds, the engine's ``stats``
+    and the device's name.  ``max_seq`` defaults to the larger of 64 and
+    the prompt plus ``max_tokens``; a prompt that does not fit raises.
+    Prompts and sampling are seeded with 0; ``params`` are made with
+    ``init`` from seed 0 unless given (set-up, not timed)."""
+    prefix = cfg.n_patches if cfg.family == "vlm" else 0
+    total = prefix + prompt_len
+    if max_seq is None:
+        max_seq = max(64, total + max_tokens)
+    if total >= max_seq:
+        raise ValueError(f"prompts of {total} tokens do not fit max_seq="
+                         f"{max_seq}")
     dev = torch.device(device) if device is not None else device_for()
     api = get_model(cfg)
     if params is None:
@@ -46,8 +61,9 @@ def run(cfg: ModelConfig, requests: int = 8, slots: int = 4,
         torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
     for i in range(requests):
-        eng.submit(Request(prompt=rng.integers(1, 200, size=prompt_len)
-                           .tolist(), max_tokens=max_tokens,
+        eng.submit(Request(prompt=[0] * prefix + rng.integers(
+                               1, 200, size=prompt_len).tolist(),
+                           max_tokens=max_tokens,
                            temperature=temperature, rid=i))
     done = eng.run_until_done()
     dt = time.perf_counter() - t0
@@ -69,7 +85,9 @@ def parser() -> argparse.ArgumentParser:
                          "full config)")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)
-    ap.add_argument("--max-seq", type=int, default=64)
+    ap.add_argument("--max-seq", type=int, default=None,
+                    help="cache length (default: the larger of 64 and the "
+                         "prompt plus --max-tokens)")
     ap.add_argument("--max-tokens", type=int, default=16)
     ap.add_argument("--temperature", type=float, default=0.0)
     return ap

@@ -1,17 +1,21 @@
-"""Shared model layers of the serving path: RMSNorm, RoPE, the embedding
-lookup and GQA attention (the chunked online-softmax reference and the
-decode path), as plain PyTorch ops.
+"""Shared model layers of the serving path: RMSNorm, RoPE, SwiGLU, the
+embedding lookup and GQA attention (the chunked online-softmax reference
+and the decode path), as plain PyTorch ops.
 
 They mirror the reference package's ``models/layers.py`` step by step,
 dtypes included: RMSNorm in float32, attention scores and outputs
 accumulated in float32 (the reference's ``preferred_element_type``), the
 probabilities cast to the cache's dtype before the output product.  None
 of these is a TPU kernel in the reference, so none is a kernel here;
-``scaled_dot_product_attention`` is not used.
+``scaled_dot_product_attention`` is not used.  The prefill attention of
+the models goes through ``kernels.ops.flash_attention``, which runs
+``attention_ref`` for tensors on the CPU and the CUDA kernel (K4) on the
+card.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 _NEG_INF = -1e30
 
@@ -40,6 +44,10 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0):
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def swiglu(x, w_gate, w_up, w_down):
+    return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
 
 
 def _gqa_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:

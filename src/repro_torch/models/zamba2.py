@@ -5,17 +5,20 @@ A port of the reference package's ``models/zamba2.py``.  Layout: 13
 groups of 6 blocks and a tail of 3; the shared attention block (one set of
 weights) fires before each group and before the tail, 14 applications per
 forward.  Decode state: 81 Mamba2 states (O(1) in the sequence) and 14 KV
-caches for the shared block.  ``decode_step`` writes the new key and value
-into the caches it is given, in place, where the reference builds new
-arrays; it returns the same tensors.
+caches for the shared block.  A prompt's shared attention goes through
+``kernels.ops.flash_attention`` (the CUDA kernel, K4, on the card), a
+decode step's through ``layers.attention_decode``.  ``decode_step``
+writes the new key and value into the caches it is given, in place,
+where the reference builds new arrays; it returns the same tensors.
 """
 from __future__ import annotations
 
 import torch
 
 from ..configs.base import ModelConfig
-from .layers import (attention_decode, attention_ref, compute_dtype,
-                     embed_lookup, rms_norm, rope)
+from ..kernels import ops as kops
+from .layers import (attention_decode, compute_dtype, embed_lookup, rms_norm,
+                     rope)
 from .module import ParamSpec
 from . import mamba2
 
@@ -73,7 +76,8 @@ def shared_attn(h, x0, w, cfg: ModelConfig, positions, cache=None, cur=None):
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     if cache is None:
-        o = attention_ref(q, k, v, causal=True, chunk_kv=cfg.attn_chunk_kv)
+        o = kops.flash_attention(q, k, v, causal=True,
+                                 block_kv=cfg.attn_chunk_kv)
         kv = (k, v)
     else:
         ck, cv = cache

@@ -15,6 +15,11 @@ layouts with the batch anywhere (zamba2's Mamba state is (groups, layers,
 B, ...)) are placed right.  ``stats`` counts prefills and decode steps and
 the host seconds each took; both end with a token read back to the host,
 so on the card they include the device's work.
+
+A ``vlm`` prompt is prefilled with zero patch embeddings (float32, one per
+patch position) in place of its first ``n_patches`` tokens, as in the
+reference's engine; ``prefill_batch`` builds that batch.  A prompt shorter
+than ``n_patches`` raises ``ValueError`` (``models/transformer.py``).
 """
 from __future__ import annotations
 
@@ -24,9 +29,20 @@ from typing import List, Optional
 
 import torch
 
-from ..configs.base import ShapeConfig
+from ..configs.base import ModelConfig, ShapeConfig
 from ..models import ModelApi
 from ..models.module import tree_leaves, tree_map
+
+
+def prefill_batch(cfg: ModelConfig, tokens: torch.Tensor) -> dict:
+    """The prefill batch of ``tokens`` (B,T) for ``ModelApi.prefill_fn``:
+    for a ``vlm`` also zero patch embeddings (B, n_patches, d_model)."""
+    batch = {"tokens": tokens}
+    if cfg.family == "vlm":
+        batch["prefix_embeds"] = torch.zeros(
+            (tokens.shape[0], cfg.n_patches, cfg.d_model),
+            dtype=torch.float32, device=tokens.device)
+    return batch
 
 
 @dataclass
@@ -75,8 +91,8 @@ class ServeEngine:
         t0 = time.perf_counter()
         toks = torch.tensor(req.prompt, dtype=torch.long,
                             device=self.device)[None, :]
-        logits, cache1 = self.api.prefill_fn(self.params, {"tokens": toks},
-                                             cache_len=self.S)
+        logits, cache1 = self.api.prefill_fn(
+            self.params, prefill_batch(self.api.cfg, toks), cache_len=self.S)
         if self.cache is None:
             self.cache = tree_map(lambda x, bd: torch.cat([x] * self.B, bd),
                                   cache1, self.bdims)

@@ -1,6 +1,7 @@
 """Tests of the port that need the card: the CUDA kernels (level step,
-WKV6, SSD) against their plain versions, the engine on the card against
-the engine on the host, and the serving path on the card.
+WKV6, SSD, flash attention) against their plain versions, the engine on
+the card against the engine on the host, and the serving path on the
+card.
 
 Marked ``gpu``; each test asks a fixture whether torch sees a CUDA device
 and skips when it does not.  Run on a machine with the card:
@@ -186,4 +187,63 @@ def test_serving_on_the_card_launches_the_kernels(card):
                         device="cuda", emit=lambda s: None)
         steps = res["stats"]["prefills"] + res["stats"]["decode_steps"]
         assert kern.launches - n0 == cfg.n_layers * steps
+        assert res["tokens"] == 12
+
+
+# ------------------------------------------------------ flash attention (K4)
+
+#: K4 against its plain version (same float32 online softmax, other
+#: summation order): relative to the largest |plain| value, 1e-5 in
+#: float32; in bf16 one rounding of the output, 2^-7.
+ATT_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,S,H,KV,hd,causal,window", [
+    (128, 128, 16, 8, 128, True, 0), (128, 128, 16, 8, 64, True, 0),
+    (200, 200, 4, 2, 112, True, 0), (256, 256, 4, 4, 96, True, 64),
+    (128, 384, 4, 2, 64, False, 0), (37, 37, 4, 1, 16, True, 0)])
+def test_flash_attention_kernel_vs_plain(card, dtype, T, S, H, KV, hd,
+                                         causal, window):
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import flash_attention_plain
+    g = torch.Generator(device=card).manual_seed(T + hd)
+    q = torch.randn(2, T, H, hd, generator=g, device=card).to(dtype)
+    k, v = (torch.randn(2, S, KV, hd, generator=g, device=card).to(dtype)
+            for _ in range(2))
+    n0 = flash_attention.launches
+    o = flash_attention(q, k, v, causal=causal, window=window)
+    assert flash_attention.launches == n0 + 1
+    torch.cuda.synchronize()
+    assert o.dtype == dtype and torch.isfinite(o).all()
+    want = flash_attention_plain(q, k, v, causal=causal, window=window,
+                                 block_kv=64)
+    assert _rel(o, want) < ATT_TOL[dtype]
+
+
+def test_flash_attention_reads_strides(card):
+    """Views with permuted strides give the contiguous inputs' result."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    g = torch.Generator(device=card).manual_seed(5)
+    qt = torch.randn(2, 4, 96, 64, generator=g, device=card)    # (B,H,T,hd)
+    kt = torch.randn(2, 2, 96, 64, generator=g, device=card)
+    vt = torch.randn(2, 2, 96, 64, generator=g, device=card)
+    views = [t.transpose(1, 2) for t in (qt, kt, vt)]
+    assert not views[0].is_contiguous()
+    a = flash_attention(*views)
+    b = flash_attention(*(t.contiguous() for t in views))
+    assert torch.equal(a, b)
+
+
+def test_serving_transformers_on_the_card_launch_k4(card):
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch import serve
+    for name in ("qwen3-0.6b", "granite-moe-1b-a400m", "internvl2-2b"):
+        cfg = ARCHS[name].reduced()
+        n0 = flash_attention.launches
+        res = serve.run(cfg, requests=3, slots=2, max_tokens=4,
+                        device="cuda", emit=lambda s: None)
+        assert flash_attention.launches - n0 == \
+            cfg.n_layers * res["stats"]["prefills"]
         assert res["tokens"] == 12

@@ -25,6 +25,7 @@ def test_the_port_has_files():
     names = {p.name for p in FILES}
     assert {"backend.py", "level_step.py", "paper.py", "wkv6.py", "ssd.py",
             "rwkv6.py", "zamba2.py", "engine.py", "serve.py",
+            "flash_attention.py", "transformer.py", "moe.py",
             "chip_smoke.py"} <= names
 
 

@@ -1,12 +1,16 @@
-"""The port's model zoo (the ``ssm`` and ``hybrid`` families) against the
-reference package on the CPU: parameter specs, parameter counts, and
-forward / prefill / decode of rwkv6 and zamba2 at reduced width with the
-reference's ``init`` weights carried across by ``params_from_numpy``.
+"""The port's model zoo (the ``ssm``, ``hybrid``, ``dense``, ``moe`` and
+``vlm`` families) against the reference package on the CPU: parameter
+specs, parameter counts, and forward / prefill / decode of rwkv6, zamba2
+and the transformer families (qwen3, granite-moe with and without token
+drops, internvl2 with a patch prefix, mixtral's sliding-window cache,
+deepseek-coder's padded heads) at reduced width with the reference's
+``init`` weights carried across by ``params_from_numpy``; the MoE
+dispatch's slots, gates and drops.
 
 Both packages run the same float32 algorithm at reduced width (the
-chunked recurrences on the CPU), summed in other orders, so logits and
-decode state are held to 1e-4 of their largest magnitude (measured
-<= 2e-5).
+chunked recurrences and ``attention_ref`` on the CPU), summed in other
+orders, so logits and decode state are held to 1e-4 of their largest
+magnitude (measured <= 2e-5).
 """
 import dataclasses
 
@@ -93,6 +97,10 @@ def test_full_width_parameter_counts():
     assert get_model(ARCHS["zamba2-7b"]).n_params() == 6_634_892_880
     assert param_bytes(get_model(ARCHS["rwkv6-7b"]).specs()) == \
         4 * 7_534_546_944
+    assert get_model(ARCHS["qwen3-0.6b"]).n_params() == 751_632_384
+    assert get_model(ARCHS["granite-moe-1b-a400m"]).n_params() == \
+        1_384_989_696
+    assert get_model(ARCHS["internvl2-2b"]).n_params() == 1_889_175_552
 
 
 def test_unported_families_raise():
@@ -219,3 +227,134 @@ def test_layers_match_reference(dtype):
              rl.attention_ref(*J, chunk_kv=4, **kw))
     same(pl.attention_decode(T[0][:, :1], T[1], T[2], 9),
          rl.attention_decode(J[0][:, :1], J[1], J[2], 9))
+
+
+# ------------------------------------------------------ transformer families
+
+DROPS = dict(n_experts=32, top_k=8, capacity_factor=1.25)
+TRANSFORMER_CASES = [
+    ("qwen3-0.6b", {}), ("granite-moe-1b-a400m", {}),
+    ("granite-moe-1b-a400m", DROPS), ("internvl2-2b", {}),
+    ("mixtral-8x7b", {}), ("deepseek-coder-33b", dict(head_pad_to=8)),
+]
+TRANSFORMER_IDS = ["qwen3", "granite", "granite-drops", "internvl2",
+                   "mixtral-window", "deepseek-coder-padded"]
+
+
+def _tpair(name, overrides):
+    cfg = dataclasses.replace(ARCHS[name].reduced(), **overrides)
+    rcfg = dataclasses.replace(REF_ARCHS[name].reduced(), **overrides)
+    rapi, api = ref_model(rcfg), get_model(cfg)
+    rp = rapi.init(jax.random.PRNGKey(3))
+    return rapi, api, rp, params_from_numpy(
+        jax.tree_util.tree_map(np.asarray, rp))
+
+
+def _batches(cfg, toks, seed=1):
+    """The same prefill batch for both packages; a vlm's carries random
+    patch embeddings."""
+    rb, pb = {"tokens": jnp.asarray(toks)}, {"tokens": torch.from_numpy(
+        toks).long()}
+    if cfg.family == "vlm":
+        pe = np.random.default_rng(seed).standard_normal(
+            (toks.shape[0], cfg.n_patches, cfg.d_model)).astype(np.float32)
+        rb["prefix_embeds"], pb["prefix_embeds"] = (jnp.asarray(pe),
+                                                    torch.from_numpy(pe))
+    return rb, pb
+
+
+@pytest.mark.parametrize("name,overrides", TRANSFORMER_CASES,
+                         ids=TRANSFORMER_IDS)
+def test_transformer_prefill_and_decode_match_reference(name, overrides):
+    """20 prompt tokens (past mixtral's reduced window of 16, so its cache
+    is rolled), a cache of 24, two decode steps."""
+    rapi, api, rp, p = _tpair(name, overrides)
+    toks = np.random.default_rng(0).integers(0, 256, (2, 20)).astype(np.int32)
+    rb, pb = _batches(api.cfg, toks)
+    rl, rst = jax.jit(rapi.prefill_fn, static_argnames="cache_len")(
+        rp, rb, cache_len=24)
+    with torch.inference_mode():
+        pl, pst = api.prefill_fn(p, pb, cache_len=24)
+    assert rel_err(pl, rl) < TOL
+    for key in ("k", "v"):
+        assert pst[key].shape == rst[key].shape
+        assert rel_err(pst[key], rst[key]) < TOL, key
+    decode = jax.jit(rapi.decode_fn)
+    for cur in (20, 21):
+        nxt = np.argmax(np.asarray(rl), -1).astype(np.int32)[:, None]
+        rl, rst = decode(rp, rst, {"tokens": jnp.asarray(nxt),
+                                   "cur_index": jnp.int32(cur)})
+        with torch.inference_mode():
+            pl, pst = api.decode_fn(p, pst, {"tokens": torch.from_numpy(nxt)
+                                             .long(), "cur_index": cur})
+        assert rel_err(pl, rl) < TOL
+        for key in ("k", "v"):
+            assert rel_err(pst[key], rst[key]) < TOL, key
+
+
+@pytest.mark.parametrize("name,overrides", TRANSFORMER_CASES,
+                         ids=TRANSFORMER_IDS)
+def test_transformer_forward_matches_reference(name, overrides):
+    """forward equals the reference's; without token drops, prefill of T
+    tokens then one decode step gives forward's logits at positions T-1
+    and T (with drops the capacity depends on the number of tokens in the
+    call, so the two differ in both packages)."""
+    from repro.models import transformer as rt
+    from repro_torch.models import transformer as pt
+    rapi, api, rp, p = _tpair(name, overrides)
+    toks = np.random.default_rng(1).integers(0, 256, (2, 19)).astype(np.int32)
+    rb, pb = _batches(api.cfg, toks)
+    t = pb["tokens"]
+    with torch.inference_mode():
+        full, aux = pt.forward(p, t, api.cfg,
+                               prefix_embeds=pb.get("prefix_embeds"))
+        last, st = api.prefill_fn(p, dict(pb, tokens=t[:, :18]),
+                                  cache_len=19)
+        step, _ = api.decode_fn(p, st, {"tokens": t[:, 18:],
+                                        "cur_index": 18})
+    rfull, raux = rt.forward(rp, rb["tokens"], rapi.cfg,
+                             prefix_embeds=rb.get("prefix_embeds"))
+    assert rel_err(full, rfull) < TOL
+    assert abs(float(aux) - float(raux)) <= TOL * max(abs(float(raux)), 1)
+    if overrides != DROPS:
+        assert rel_err(last, full[:, 17]) < TOL
+        assert rel_err(step, full[:, 18]) < TOL
+
+
+def test_vlm_prompt_shorter_than_its_prefix_raises():
+    _, api, _, p = _tpair("internvl2-2b", {})
+    P = api.cfg.n_patches
+    with pytest.raises(ValueError, match="shorter than its prefix"):
+        api.prefill_fn(p, {"tokens": torch.ones((1, P - 1), dtype=torch.long),
+                           "prefix_embeds": torch.zeros((1, P, 64))},
+                       cache_len=32)
+
+
+@pytest.mark.parametrize("n", [2, 6, 128])
+def test_moe_dispatch_equals_reference(n):
+    """Slots, tokens, gates, buffers, aux and the combine of the capacity
+    dispatch at 32 experts, top-8, capacity factor 1.25 (the full granite
+    config's), with drops at every n here."""
+    from repro.models import moe as rmoe
+    from repro_torch.models import moe as pmoe
+    cfg = dataclasses.replace(ARCHS["granite-moe-1b-a400m"].reduced(),
+                              **DROPS)
+    rcfg = dataclasses.replace(REF_ARCHS["granite-moe-1b-a400m"].reduced(),
+                               **DROPS)
+    rng = np.random.default_rng(n)
+    x = rng.standard_normal((n, 64)).astype(np.float32)
+    w = (rng.standard_normal((64, 32)) / 8).astype(np.float32)
+    C = pmoe._capacity(n, cfg)
+    assert C == rmoe._capacity(n, rcfg)
+    got = pmoe._dispatch(torch.from_numpy(x), torch.from_numpy(w), cfg, C)
+    want = rmoe._dispatch(jnp.asarray(x), jnp.asarray(w), rcfg, C)
+    buf, slot, tok, gate, aux = got
+    assert np.array_equal(slot.numpy(), np.asarray(want[1]))
+    assert np.array_equal(tok.numpy(), np.asarray(want[2]))
+    assert (slot.numpy() == 32 * C).sum() > 0          # tokens dropped
+    assert rel_err(gate, want[3]) < TOL and rel_err(buf, want[0]) < TOL
+    assert abs(float(aux) - float(want[4])) < TOL
+    y = rng.standard_normal((32, C, 64)).astype(np.float32)
+    assert rel_err(pmoe._combine(torch.from_numpy(y), slot, tok, gate, n),
+                   rmoe._combine(jnp.asarray(y), want[1], want[2], want[3],
+                                 n)) < TOL

@@ -1,8 +1,9 @@
 """The port's serving path on the CPU: ``ServeEngine`` against the
-reference package's engine (rwkv6) and against the reference's
-per-request prefill + greedy decode loop (zamba2 with 2 slots, which the
-reference's engine cannot serve: its batch axis is fixed at 1), the
-serving launcher, and the card fixture's expected values.
+reference package's engine (rwkv6; qwen3, granite-moe with and without
+token drops, internvl2) and against the reference's per-request prefill +
+greedy decode loop (zamba2 with 2 slots, which the reference's engine
+cannot serve: its batch axis is fixed at 1), the serving launcher, and
+the card fixture's expected values.
 
 Greedy tokens must be equal.  The fixture's logits are held to 1e-4 of
 their largest magnitude (the port's CPU path measured <= 2e-5 against
@@ -27,7 +28,7 @@ from repro_torch.launch import serve as launch
 from repro_torch.models import get_model
 from repro_torch.models.module import (init_params_numpy,
                                        params_from_numpy)
-from repro_torch.serve import Request, ServeEngine
+from repro_torch.serve import Request, ServeEngine, prefill_batch
 
 
 @pytest.fixture(autouse=True)
@@ -39,8 +40,9 @@ EXPECTED = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / \
     "configs" / "serve_expected.json"
 
 
-def _pair(name, seed):
-    rcfg, cfg = REF_ARCHS[name].reduced(), ARCHS[name].reduced()
+def _pair(name, seed, **overrides):
+    rcfg = dataclasses.replace(REF_ARCHS[name].reduced(), **overrides)
+    cfg = dataclasses.replace(ARCHS[name].reduced(), **overrides)
     rapi = ref_model(rcfg)
     rp = rapi.init(jax.random.PRNGKey(seed))
     return rapi, rp, get_model(cfg), params_from_numpy(
@@ -68,6 +70,58 @@ def test_rwkv6_engine_tokens_equal_reference_engine():
     for a, b in zip(reqs, ref_reqs):
         assert a.output == b.output, a.rid
     assert eng.stats["prefills"] == 3 and eng.stats["decode_steps"] == 8
+
+
+DROPS = dict(n_experts=32, top_k=8, capacity_factor=1.25)
+
+
+@pytest.mark.parametrize("name,overrides", [
+    ("qwen3-0.6b", {}), ("granite-moe-1b-a400m", {}),
+    ("granite-moe-1b-a400m", DROPS), ("internvl2-2b", {})],
+    ids=["qwen3", "granite", "granite-drops", "internvl2"])
+def test_transformer_engine_tokens_equal_reference_engine(name, overrides):
+    """Three prompts over two slots: the third is served beside an idle
+    slot (token 0, a stale cache), which with capacity-dropping MoE
+    (granite-drops: capacity 1 per expert in a decode step) changes the
+    live slot's output in both engines alike.  A vlm's prompts start with
+    its n_patches placeholders."""
+    rapi, rp, api, p = _pair(name, 4, **overrides)
+    P = api.cfg.n_patches if api.cfg.family == "vlm" else 0
+    prompts = [[0] * P + q for q in _prompts(3, 6, 2)]
+    ref_eng = RefEngine(rapi, rp, batch_slots=2, max_seq=P + 16)
+    eng = ServeEngine(api, p, batch_slots=2, max_seq=P + 16)
+    ref_reqs = [RefRequest(prompt=q, max_tokens=5, rid=i)
+                for i, q in enumerate(prompts)]
+    reqs = [Request(prompt=q, max_tokens=5, rid=i)
+            for i, q in enumerate(prompts)]
+    for r in ref_reqs:
+        ref_eng.submit(r)
+    for r in reqs:
+        eng.submit(r)
+    assert len(ref_eng.run_until_done()) == len(eng.run_until_done()) == 3
+    for a, b in zip(reqs, ref_reqs):
+        assert a.output == b.output, a.rid
+    assert eng.stats["prefills"] == 3 and eng.stats["decode_steps"] == 8
+
+
+def test_vlm_prompt_shorter_than_its_prefix_raises():
+    _, _, api, p = _pair("internvl2-2b", 1)
+    eng = ServeEngine(api, p, batch_slots=2, max_seq=32)
+    eng.submit(Request(prompt=[1, 2, 3, 4], max_tokens=3))
+    with pytest.raises(ValueError, match="shorter than its prefix"):
+        eng.run_until_done()
+
+
+def test_launcher_serves_a_vlm_after_its_placeholders():
+    cfg = ARCHS["internvl2-2b"].reduced()
+    res = launch.run(cfg, requests=3, slots=2, max_tokens=4, prompt_len=8,
+                     device="cpu", emit=lambda s: None)
+    assert res["requests"] == 3 and res["tokens"] == 12
+    for r in res["done"]:
+        assert len(r.prompt) == cfg.n_patches + 8
+        assert r.prompt[:cfg.n_patches] == [0] * cfg.n_patches
+    with pytest.raises(ValueError, match="do not fit"):
+        launch.run(cfg, requests=1, max_seq=16, prompt_len=8, device="cpu")
 
 
 def _ref_greedy(rapi, rp, prompt, n_new, max_seq):
@@ -143,7 +197,7 @@ def test_launcher_run_reports_the_engine():
     assert res["device"] == "cpu"
 
 
-@pytest.mark.parametrize("index", [0, 1])
+@pytest.mark.parametrize("index", [0, 1, 2, 3, 4])
 def test_card_fixture_on_the_host(index):
     """The port's CPU path reproduces serve_expected.json: the reference's
     greedy tokens exactly, its prefill logits within 1e-4."""
@@ -161,7 +215,7 @@ def test_card_fixture_on_the_host(index):
     for r, want in zip(reqs, fx["runs"]):
         assert r.output == want["tokens"]
         with torch.inference_mode():
-            logits, _ = api.prefill_fn(p, {"tokens": torch.tensor(
-                [r.prompt])}, cache_len=fx["prompt_len"])
+            logits, _ = api.prefill_fn(p, prefill_batch(cfg, torch.tensor(
+                [r.prompt])), cache_len=fx["prompt_len"])
         w = np.asarray(want["logits"])
         assert np.abs(logits[0].numpy() - w).max() < 1e-4 * np.abs(w).max()
