@@ -8,13 +8,17 @@ Phases, each timed; any failure ends the run with a non-zero exit:
              ``csrc/wkv6.cu``, ``csrc/ssd.cu``, ``csrc/flash_attention.cu``)
              with nvcc, one process each, all started together, and print
              ptxas's register and shared-memory report.
-3. kernel  — the CUDA level kernel against its plain PyTorch version on the
-             card, float32 and float64, with and without slot chains, ready
-             times and the clamp, on seeded random DAGs and on the real
-             replay plan of PolyBench gemm (N=20, m=4, 8 ALU slots).  F and R
-             must be bitwise equal.  Then timings: the kernel, the plain
+3. kernel  — the CUDA level kernels against their plain PyTorch version on
+             the card, float32 and float64, with and without slot chains,
+             ready times and the clamp, on seeded random DAGs, on a layered
+             DAG whose plan mixes wide and narrow levels (k=11, two column
+             tiles), on PolyBench gemm's DAG (N=20, k=1 and 11) and on its
+             real replay plan (m=4, 8 ALU slots).  F and R must be bitwise
+             equal, with one grid per plan row.  Then timings: the
+             kernels (µs per dependent level, grids per call), the plain
              version and a per-level ``scatter_reduce`` yardstick on the
-             main path's shapes.  Then the WKV6 and SSD kernels against
+             main path's shapes, and HPCG's uncached DAG pass (1.79M
+             vertices, 49,304 levels, k=1).  Then the WKV6 and SSD kernels against
              their plain versions (chunked at 256, and sequential) at
              full-width heads, T = 1, 128, 256, a nonzero initial state,
              the decay-e^-1 input on which the TPU kernels overflow, and a
@@ -22,10 +26,14 @@ Phases, each timed; any failure ends the run with a non-zero exit:
              at the serve shapes.  Then the flash-attention kernel against
              its plain version in float32 and bf16 (``ATT_CASES``: the
              served models' prefill shapes, zamba2's shared attention,
-             heads of 96, a window, non-causal T=128 over S=384, a ragged
-             T=200): finite, within ``ATT_TOL``; and its times at the
-             served shapes beside the plain version's and one
-             ``scaled_dot_product_attention`` call's.
+             heads of 96, 8 and 40, a window, non-causal T=128 over S=384,
+             a ragged T=200): finite, within ``ATT_TOL``, and in bf16
+             within ``ATT_ROUND_P_TOL`` of the plain version that rounds P
+             as the kernel does; and its times at the served shapes (CUDA
+             events, wrapper included, and the kernel's own device time
+             from ``torch.profiler``) beside
+             the plain version's and one ``scaled_dot_product_attention``
+             call's.
 4. main    — the paper runner (``repro_torch.launch.paper``) at the paper's
              sizes: PolyBench PAPER_15 at N=20 and HPCG 16^3 x 6 iterations
              (1.79M vertices) under the default float32 replay policy, then
@@ -117,6 +125,28 @@ def random_dag(seed: int, n: int = 400, p_mem: float = 0.4):
                             np.asarray(dst, dtype=np.int64))
 
 
+def layered_dag(widths, seed: int = 0):
+    """Layers of the given widths, each vertex fed by one to three of the
+    layer before: a DAG whose levels alternate between wide and narrow."""
+    import numpy as np
+    from repro_torch.core.graph import EDag
+    rng = np.random.default_rng(seed)
+    src, dst, prev, n = [], [], [], 0
+    for w in widths:
+        cur = list(range(n, n + w))
+        for v in cur:
+            if prev:
+                for u in rng.choice(prev, size=min(len(prev), int(
+                        rng.integers(1, 4))), replace=False):
+                    src.append(int(u))
+                    dst.append(v)
+        prev, n = cur, n + w
+    is_mem = rng.random(n) < 0.5
+    return EDag.from_arrays(np.ones(n), is_mem, np.where(is_mem, 8.0, 0.0),
+                            np.asarray(src, dtype=np.int64),
+                            np.asarray(dst, dtype=np.int64))
+
+
 def replay_plan(g, m: int, cs: int, alpha: float = 50.0):
     from repro_torch.core import scheduler as S
     g._finalize()
@@ -171,11 +201,14 @@ def base_matrix(lv, k: int, seed: int, dtype, slot: bool,
 
 
 def check_kernel(lv, k: int, seed: int, label: str):
-    """Kernel vs plain version, bitwise, over dtype x R_out x clamp, on
-    dirty bases.  Returns (cases, largest |kernel - plain| seen)."""
+    """Kernels vs plain version, bitwise, over dtype x R_out x clamp, on
+    dirty bases, with one grid per row of the plan.  Returns (cases,
+    largest |kernel - plain| seen)."""
     import torch
-    from repro_torch.kernels.level_step import level_step, level_step_plain
+    from repro_torch.kernels.level_step import (level_step, level_step_plain,
+                                                narrow_width)
     slot = lv.qpred is not None
+    plan = lv.level_plan(narrow_width(k))
     n_cases, err = 0, 0.0
     for dtype in (torch.float32, torch.float64):
         for want_r in (False, True):
@@ -184,7 +217,11 @@ def check_kernel(lv, k: int, seed: int, label: str):
                 Fk, Fp = base.clone(), base.clone()
                 Rk = torch.zeros_like(base) if want_r else None
                 Rp = torch.zeros_like(base) if want_r else None
+                n0 = level_step.launches
                 level_step(lv, Fk, clamp=clamp, R_out=Rk)
+                if level_step.launches - n0 != len(plan):
+                    raise SystemExit(f"{label}: {level_step.launches - n0} "
+                                     f"grids for a plan of {len(plan)} rows")
                 level_step_plain(lv, Fp, clamp=clamp, R_out=Rp)
                 torch.cuda.synchronize()
                 err = max(err, abs_err(Fk, Fp))
@@ -198,7 +235,9 @@ def check_kernel(lv, k: int, seed: int, label: str):
                         f"{abs_err(Fk, Fp)}")
                 n_cases += 1
     print(f"  {label}: n={lv.n} levels={lv.n_levels} slot_chains={slot} "
-          f"k={k}: {n_cases} cases bitwise equal", flush=True)
+          f"k={k}: {n_cases} cases bitwise equal; plan {len(plan)} grids "
+          f"({int(plan[:, 2].sum())} wide levels, "
+          f"{int((plan[:, 2] == 0).sum())} narrow segments)", flush=True)
     return n_cases, err
 
 
@@ -285,9 +324,11 @@ def measure(lv, k: int, dtype, clamp: bool, want_r: bool, reps: int,
         return torch.zeros_like(bases[0]) if want_r else None
 
     launches0, calls0 = level_step.launches, level_step.calls
+    levels0 = level_step.levels
     ms = time_ms(lambda F: level_step(lv, F, clamp=clamp, R_out=R()), bases)
-    per_call = ((level_step.launches - launches0) /
-                max(level_step.calls - calls0, 1))
+    calls = max(level_step.calls - calls0, 1)
+    per_call = (level_step.launches - launches0) / calls
+    levels = (level_step.levels - levels0) / calls
     plain = time_ms(lambda F: level_step_plain(lv, F, clamp=clamp,
                                                R_out=R()),
                     bases[:plain_reps], warmup=1)
@@ -304,10 +345,37 @@ def measure(lv, k: int, dtype, clamp: bool, want_r: bool, reps: int,
     itemsize = 4 if dtype == torch.float32 else 8
     bound, bound_by = bound_ms(lv, k, itemsize, want_r)
     return dict(ms=ms, ms_per_launch=ms / max(per_call, 1),
-                launches_per_call=per_call, plain_ms=plain, library_ms=lib,
+                launches_per_call=per_call, levels_per_call=levels,
+                us_per_level=1e3 * ms / max(levels, 1),
+                plain_ms=plain, library_ms=lib,
                 bound_ms=bound, bound_by=bound_by,
                 n=lv.n, levels=lv.n_levels, edges=int(len(lv.esrc)), k=k,
                 dtype=str(dtype).replace("torch.", ""))
+
+
+def hpcg_dag_pass(reps: int = 3) -> dict:
+    """HPCG's uncached DAG pass at paper size (n=16, 6 iterations: 1.79M
+    vertices, 49,304 levels), one column, through the kernels: ms per call
+    (CUDA events over ``reps`` calls after one warm-up), grids and levels
+    per call, µs per level.  (Its result is checked in phase "main", where
+    table 1 runs the same pass.)"""
+    import torch
+    from repro_torch.apps import hpcg
+    from repro_torch.kernels.level_step import level_step, narrow_width
+    g, _ = hpcg.trace_cg(n=16, iters=6)
+    lv = g._level_csr()
+    plan = lv.level_plan(narrow_width(1))
+    bases = [torch.ones((lv.n, 1), device="cuda") for _ in range(reps)]
+    launches0, levels0 = level_step.launches, level_step.levels
+    calls0 = level_step.calls
+    ms = time_ms(lambda F: level_step(lv, F, clamp=False), bases, warmup=1)
+    calls = level_step.calls - calls0
+    levels = (level_step.levels - levels0) / calls
+    return dict(n=lv.n, levels=lv.n_levels, k=1, dtype="float32", ms=ms,
+                launches_per_call=(level_step.launches - launches0) / calls,
+                levels_per_call=levels, us_per_level=1e3 * ms / levels,
+                wide_levels=int(plan[:, 2].sum()),
+                narrow_segments=int((plan[:, 2] == 0).sum()))
 
 
 def profile_sweep(name: str = "gemm", N: int = 20) -> dict:
@@ -335,7 +403,7 @@ def profile_sweep(name: str = "gemm", N: int = 20) -> dict:
         dev_us = getattr(ev, "self_device_time_total",
                          getattr(ev, "self_cuda_time_total", 0.0))
         busy += dev_us
-        if "level_kernel" in ev.key:
+        if "level_kernel" in ev.key or "segment_kernel" in ev.key:
             level += dev_us
     if busy <= 0:
         return dict(kernel=f"{name} N={N}", wall_s=wall,
@@ -448,12 +516,14 @@ def run_dirty_sweep(spec: dict) -> dict:
         raise SystemExit("dirty sweep: every recorded makespan is exact in "
                          "float32, so no float64 rerun would be checked")
     before, launches = B.stats.snapshot(), level_step.launches
+    levels = level_step.levels
     t0 = time.perf_counter()
     mk = latency_sweep(g, alphas, m=spec["m"],
                        compute_slots=spec["compute_slots"], policy=pol)
     seconds = time.perf_counter() - t0
     moved = {k: v - before.get(k, 0) for k, v in B.stats.snapshot().items()}
     moved["launches"] = level_step.launches - launches
+    moved["levels"] = level_step.levels - levels
     if not np.array_equal(mk.view(np.int64), want.view(np.int64)):
         raise SystemExit(f"dirty sweep makespans {mk.tolist()} != the JAX "
                          f"package's {want.tolist()}")
@@ -645,10 +715,18 @@ def time_recurrences() -> dict:
 # ------------------------------------------------- flash attention phase
 
 #: K4 against its plain version on the card: max |Δ| over max |plain|.
-#: Both run the float32 online softmax over KV tiles of 64 keys, summed in
-#: other orders (float32: ~1e-7); in bf16 the output's rounding to bf16
-#: (at most 2^-8 of a value) can flip.
+#: Both run the float32 online softmax over the kernels' KV tiles (64 keys
+#: in float32, 128 in bf16), summed in other orders (float32: ~1e-7); in bf16 the output's rounding to bf16
+#: (at most 2^-8 of a value) can flip, and the bf16 kernel rounds P to
+#: bf16 (2^-9 of each probability) where this plain version does not.
 ATT_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
+#: bf16 K4 against the plain version that rounds P to bf16 as the kernel
+#: does (``round_p=True``), element by element: |Δ| at most ATT_ROUND_P_TOL
+#: [0] of the plain value (one bf16 ulp: the float32 sums, in another
+#: order, can flip the output's rounding) plus [1] of the largest |plain|
+#: (they can flip a probability's rounding, which moves an output by 2^-8
+#: p/l |v|).
+ATT_ROUND_P_TOL = (2.0 ** -7, 2.0 ** -10)
 #: (label, B, T, S, H, KV, hd, causal, window)
 ATT_CASES = (
     ("qwen3-0.6b", 1, 128, 128, 16, 8, 128, True, 0),
@@ -659,6 +737,8 @@ ATT_CASES = (
     ("window 64", 2, 256, 256, 16, 8, 128, True, 64),
     ("non-causal T=128 S=384", 2, 128, 384, 16, 16, 64, False, 0),
     ("ragged T=200", 2, 200, 200, 16, 8, 128, True, 0),
+    ("hd=8", 2, 128, 128, 16, 8, 8, True, 0),
+    ("hd=40 window 48", 2, 200, 200, 16, 8, 40, True, 48),
 )
 #: the prefill shapes of the served models, one request: (label, T, H, KV,
 #: hd), bf16, causal
@@ -667,6 +747,8 @@ ATT_SERVE_SHAPES = (("qwen3-0.6b", 128, 16, 8, 128),
                     ("internvl2-2b", 384, 16, 8, 128),
                     ("zamba2-7b", 128, 32, 32, 112))
 BF16_OPS_PER_S = 989e12            # H100 SXM dense bf16 tensor cores
+#: keys per KV tile of K4's kernels (``csrc/flash_attention.cu``), by dtype
+ATT_BLOCK_KV = {"float32": 64, "bfloat16": 128}
 
 
 def att_inputs(B, T, S, H, KV, hd, dtype, seed):
@@ -678,15 +760,26 @@ def att_inputs(B, T, S, H, KV, hd, dtype, seed):
     return q.to(dtype), k.to(dtype), v.to(dtype)
 
 
+def round_p_excess(o, p) -> float:
+    """Largest |o - p| beyond ATT_ROUND_P_TOL[0] of |p|, over max |p|."""
+    pd = p.double()
+    ex = (o.double() - pd).abs() - ATT_ROUND_P_TOL[0] * pd.abs()
+    return max(ex.max().item(), 0.0) / max(pd.abs().max().item(), 1e-30)
+
+
 def check_attention() -> dict:
-    """K4 against ``flash_attention_plain`` (KV blocks of 64, as the
-    kernel's tiles) on the card at every case of ``ATT_CASES``, in float32
-    and bf16: finite, within ``ATT_TOL``.  Returns the cases, the largest
-    |Δ| and the largest relative |Δ|."""
+    """K4 against ``flash_attention_plain`` (KV blocks of
+    ``ATT_BLOCK_KV``, as the kernels' tiles) on the card at every case of
+    ``ATT_CASES``, in float32 and bf16: finite, within ``ATT_TOL``; in bf16
+    also within ``ATT_ROUND_P_TOL`` of the plain version with
+    ``round_p=True``.  Returns the cases, the largest |Δ| and relative |Δ|
+    against the plain version, the largest relative |Δ| against the
+    rounding one and the largest excess over one ulp there."""
     import torch
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ref import flash_attention_plain
-    out = dict(cases=0, max_abs_err=0.0, max_rel_err=0.0)
+    out = dict(cases=0, max_abs_err=0.0, max_rel_err=0.0,
+               max_rel_err_round_p=0.0, max_round_p_excess=0.0)
     for i, (label, B, T, S, H, KV, hd, causal, window) in \
             enumerate(ATT_CASES):
         errs = []
@@ -699,19 +792,49 @@ def check_attention() -> dict:
                 raise SystemExit(f"flash_attention {label} {name}: "
                                  f"non-finite output or dtype {o.dtype}")
             p = flash_attention_plain(q, k, v, causal=causal, window=window,
-                                      block_kv=64)
+                                      block_kv=ATT_BLOCK_KV[name])
             rel = rel_err(o, p)
             errs.append(f"{name} {rel:.2e}")
             if rel > ATT_TOL[name]:
                 raise SystemExit(f"flash_attention {label} {name}: kernel "
                                  f"vs plain version: relative |Δ| "
                                  f"{rel:.3e} > {ATT_TOL[name]:.3e}")
+            if dtype == torch.bfloat16:
+                pr = flash_attention_plain(q, k, v, causal=causal,
+                                           window=window,
+                                           block_kv=ATT_BLOCK_KV[name],
+                                           round_p=True)
+                rel_r, excess = rel_err(o, pr), round_p_excess(o, pr)
+                errs.append(f"vs round_p {rel_r:.2e} (beyond one ulp "
+                            f"{excess:.2e})")
+                if excess > ATT_ROUND_P_TOL[1]:
+                    raise SystemExit(
+                        f"flash_attention {label}: kernel vs round_p plain "
+                        f"version: |Δ| beyond one ulp {excess:.3e} > "
+                        f"{ATT_ROUND_P_TOL[1]:.3e} of the largest")
+                out["max_rel_err_round_p"] = max(out["max_rel_err_round_p"],
+                                                 rel_r)
+                out["max_round_p_excess"] = max(out["max_round_p_excess"],
+                                                excess)
             out["cases"] += 1
             out["max_abs_err"] = max(out["max_abs_err"], abs_err(o, p))
             out["max_rel_err"] = max(out["max_rel_err"], rel)
         print(f"  flash_attention {label} (B={B} T={T} S={S} H={H} KV={KV} "
               f"hd={hd} causal={causal} window={window}): relative |Δ| vs "
               f"plain {', '.join(errs)}", flush=True)
+    # views whose strides and base are not 16-byte aligned (element loads
+    # in the bf16 kernel) give the contiguous inputs' result
+    for dtype in (torch.float32, torch.bfloat16):
+        wide = att_inputs(2, 200, 200, 16, 8, 129, dtype, seed=99)
+        views = [t[..., 1:] for t in wide]
+        if not torch.equal(flash_attention(*views),
+                           flash_attention(*(t.contiguous()
+                                             for t in views))):
+            raise SystemExit(f"flash_attention {dtype}: unaligned views "
+                             f"differ from contiguous inputs")
+        out["cases"] += 1
+    print("  flash_attention: unaligned strided views equal the contiguous "
+          "inputs' result (hd=128)", flush=True)
     return out
 
 
@@ -735,13 +858,37 @@ def attention_bound(B, T, S, H, KV, hd, causal, window, itemsize) -> tuple:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def device_us(fn, reps: int = 20):
+    """Device microseconds per call of ``fn``: the CUDA kernels' device
+    times under ``torch.profiler`` over ``reps`` calls after one warm-up,
+    summed and divided by ``reps`` (the host's launch cost is not in
+    it)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    dev = sum(getattr(ev, "self_device_time_total",
+                      getattr(ev, "self_cuda_time_total", 0.0))
+              for ev in prof.key_averages()
+              if getattr(ev, "device_type", None) == DeviceType.CUDA)
+    return dev / reps if dev > 0 else "not measured"
+
+
 def time_attention() -> dict:
-    """K4 at the served prefill shapes in bf16: the kernel's ms per launch
-    (CUDA events over 100 launches, wrapper included), the plain
-    version's (5 calls), the bound, and as ``library_ms`` one
-    ``scaled_dot_product_attention`` call on (B,H,T,hd) copies of the
-    same inputs (timed here only; the port never calls it), held to the
-    kernel's output within SERVE_TOL."""
+    """K4 at the served prefill shapes in bf16: ms per launch (CUDA
+    events over 100 launches, wrapper included) and the kernel's own
+    device µs per launch (``torch.profiler``); the plain version's ms (5
+    calls); the bound; and as ``library_ms`` / ``library_device_us`` one
+    ``scaled_dot_product_attention`` call on (B,H,T,hd) copies of the same
+    inputs (timed here only; the port never calls it), held to the
+    kernel's output within SERVE_TOL.  Last, one (batch, head) alone at
+    T=128 and 1024, whose longest CTA runs 1 and 8 KV tiles: the µs per
+    tile of one CTA's serial chain."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention
@@ -762,10 +909,21 @@ def time_attention() -> dict:
         out[label] = dict(
             T=T, H=H, KV=KV, hd=hd, dtype="bfloat16",
             ms=time_calls(lambda: flash_attention(q, k, v), 100),
+            device_us=device_us(lambda: flash_attention(q, k, v)),
             plain_ms=time_calls(lambda: flash_attention_plain(
-                q, k, v, block_kv=64), 5),
-            library_ms=time_calls(sdpa, 100), library_rel_err=lib_err,
+                q, k, v, block_kv=ATT_BLOCK_KV["bfloat16"]), 5),
+            library_ms=time_calls(sdpa, 100),
+            library_device_us=device_us(sdpa), library_rel_err=lib_err,
             bound_ms=bound, bound_by=by)
+    # one (batch, head) alone, T = 128 and 1024 keys: the serial chain of
+    # one CTA over its KV tiles, which the served shapes wait on
+    chain = {}
+    for T in (128, 1024):
+        q, k, v = att_inputs(1, T, T, 1, 1, 128, torch.bfloat16, seed=9)
+        chain[f"T={T}"] = device_us(lambda: flash_attention(q, k, v))
+    out["one head, hd=128"] = dict(device_us=chain, us_per_kv_tile=(
+        (chain["T=1024"] - chain["T=128"]) / 7
+        if "not measured" not in chain.values() else "not measured"))
     print(f"  flash_attention timings: {json.dumps(out)}", flush=True)
     return out
 
@@ -962,7 +1120,7 @@ SERVED = (("rwkv6-7b", "wkv6", 128, 256), ("zamba2-7b", "ssd", 128, 256),
           ("granite-moe-1b-a400m", None, 128, 256),
           ("internvl2-2b", None, 128, 512))
 KERNEL_NAMES = {"wkv6": "wkv6_kernel", "ssd": "ssd_kernel",
-                "flash_attention": "flash_attention_kernel"}
+                "flash_attention": "flash_attention_"}
 
 
 def prompt_tokens(cfg, prompt_len: int, seed: int):
@@ -1179,9 +1337,14 @@ def main() -> int:
         n_alpha = len(paper.ANALYSIS.alpha_sweep)
         cases = [(random_dag(s)._level_csr(), 5, s, f"random DAG {s}")
                  for s in range(3)]
-        cases += [(replay_plan(random_dag(s), 2, 3).lv, 5, s,
+        cases += [(replay_plan(random_dag(s), 2, 3).lv, 13, s,
                    f"random DAG {s} replay m=2 cs=3") for s in range(3)]
-        cases += [(gemm._level_csr(), n_alpha, 11, "gemm N=20"),
+        layered = layered_dag((5, 600, 3, 2, 7, 400, 1, 300, 4, 4))
+        cases += [(layered._level_csr(), 11, 3, "layered DAG"),
+                  (replay_plan(layered, 300, 300).lv, 11, 4,
+                   "layered DAG replay m=cs=300"),
+                  (gemm._level_csr(), 1, 11, "gemm N=20"),
+                  (gemm._level_csr(), n_alpha, 11, "gemm N=20"),
                   (gplan.lv, n_alpha, 11, "gemm N=20 replay m=4 cs=8")]
         n_cases, max_err = 0, 0.0
         for case in cases:
@@ -1196,6 +1359,8 @@ def main() -> int:
                                     True, reps=20, plain_reps=2))
         for key, m in meas.items():
             print(f"  {key}: {json.dumps(m)}", flush=True)
+        hpcg_pass = hpcg_dag_pass()
+        print(f"  hpcg DAG pass: {json.dumps(hpcg_pass)}", flush=True)
         prof = profile_sweep()
         print(f"  profile: {json.dumps(prof)}", flush=True)
         rec_checks = check_recurrences()
@@ -1225,6 +1390,7 @@ def main() -> int:
                              f"{dict(B.stats)}")
         main_launches = level_step.launches
         main_calls = level_step.calls
+        main_levels = level_step.levels
 
     with phase("fixture"):
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -1252,8 +1418,12 @@ def main() -> int:
             ms=m["ms"], plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
             bound_by=m["bound_by"], library_ms=m["library_ms"],
             ms_per_launch=m["ms_per_launch"],
+            launches_per_call=m["launches_per_call"],
+            levels_per_call=m["levels_per_call"],
+            us_per_level=m["us_per_level"],
             shape=("gemm N=20 replay plan m=4 cs=8, k=11 float32, R_out, "
                    "one call"),
+            levels=main_levels, hpcg_dag_pass=hpcg_pass,
             launches_per_figure=dict(float32=launches, float64=launches_x64),
             stats=dict(float32=f32_stats, dirty_sweep=dirty_stats,
                        float64=B.stats.snapshot()),
@@ -1287,9 +1457,13 @@ def main() -> int:
                                for m in served},
             max_abs_err=att_checks["max_abs_err"],
             max_rel_err=att_checks["max_rel_err"],
+            max_rel_err_round_p=att_checks["max_rel_err_round_p"],
+            max_round_p_excess=att_checks["max_round_p_excess"],
             kernel_cases=att_checks["cases"],
             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by=t["bound_by"], library_ms=t["library_ms"],
+            device_us=t["device_us"],
+            library_device_us=t["library_device_us"],
             shape="qwen3-0.6b prefill, one request, T=128 H=16 KV=8 hd=128 "
                   "bf16 causal",
             timings=att_times))

@@ -160,6 +160,7 @@ class LevelCSR:
     qonly_dst: Optional[np.ndarray] = None
     seg_ptr: Optional[np.ndarray] = None
     _dev: dict = field(default_factory=dict, repr=False, compare=False)
+    _plans: dict = field(default_factory=dict, repr=False, compare=False)
 
     def level_maxlens(self) -> list:
         if self.run_maxlen is None:
@@ -172,10 +173,54 @@ class LevelCSR:
                 self.run_maxlen = [0] * self.n_levels
         return self.run_maxlen
 
+    def level_widths(self) -> np.ndarray:
+        """Runs plus queue-only vertices of every level (int64)."""
+        w = np.diff(self.run_ptr).astype(np.int64)
+        if self.qonly_ptr is not None:
+            w += np.diff(self.qonly_ptr)
+        return w
+
+    def level_plan(self, narrow: int) -> np.ndarray:
+        """The level kernel's launch plan: an (n, 4) int32 array of rows
+        ``(l0, l1, wide, levels)`` that cover levels ``1..n_levels-1`` in
+        order.  A wide row is one level wider than ``narrow`` (``l1 = l0 +
+        1``); a narrow row is a maximal stretch of consecutive levels of
+        width at most ``narrow``, from its first non-empty level to its
+        last (empty levels inside it stay, empty levels outside every row
+        go); ``levels`` counts the row's non-empty levels.  Memoized per
+        ``narrow`` and slot-chain attachment."""
+        hit = self._plans.get(int(narrow))
+        if hit is not None and hit[0] is self.qonly_ptr:
+            return hit[1]
+        w = self.level_widths()[1:self.n_levels]
+        lvl = np.arange(1, len(w) + 1, dtype=np.int64)
+        wide = w > narrow
+        small = (w > 0) & ~wide
+        # narrow levels between the same two wide levels share a row
+        seg = np.cumsum(wide)[small]
+        at = lvl[small]
+        first = np.ones(len(seg), dtype=bool)
+        first[1:] = seg[1:] != seg[:-1]
+        last = np.ones(len(seg), dtype=bool)
+        last[:-1] = first[1:]
+        counts = np.diff(np.append(np.nonzero(first)[0], len(seg)))
+        one = np.ones(int(wide.sum()), dtype=np.int64)
+        rows = np.concatenate([
+            np.stack([at[first], at[last] + 1, 0 * counts, counts], axis=1),
+            np.stack([lvl[wide], lvl[wide] + 1, one, one], axis=1)])
+        got = np.ascontiguousarray(
+            rows[np.argsort(rows[:, 0], kind="stable")], dtype=np.int32)
+        self._plans[int(narrow)] = (self.qonly_ptr, got)
+        return got
+
     def device_arrays(self, device) -> SimpleNamespace:
-        """int32 tensors of the partition on ``device`` plus contiguous
-        host copies of the per-level pointers the kernel's level loop
-        reads.  Memoized per device and slot-chain attachment."""
+        """int32 tensors of the partition on ``device`` (the per-level
+        pointers among them, which the segment kernel reads, and each
+        run's first source and queue predecessor and each queue-only
+        vertex's queue predecessor, gathered here so that the kernels read
+        them directly) plus contiguous host copies of the per-level
+        pointers the kernels' host loop reads.  Memoized per device and
+        slot-chain attachment."""
         device = torch.device(device)
         key = (str(device), id(self.qpred), id(self.qonly_dst))
         got = self._dev.get(key)
@@ -191,10 +236,17 @@ class LevelCSR:
             return None if a is None else np.ascontiguousarray(a,
                                                                dtype=np.int32)
 
+        qp = self.qpred
         got = SimpleNamespace(
             esrc=put(self.esrc), run_dst=put(self.run_dst),
             run_starts=put(self.run_starts), run_lens=put(self.run_lens),
-            qpred=put(self.qpred), qonly_dst=put(self.qonly_dst),
+            qpred=put(qp), qonly_dst=put(self.qonly_dst),
+            run_ptr=put(self.run_ptr), qonly_ptr=put(self.qonly_ptr),
+            # what a pair reads, gathered by run and by queue-only vertex
+            run_src0=put(np.asarray(self.esrc)[self.run_starts]),
+            run_qp=None if qp is None else put(qp[self.run_dst]),
+            qonly_qp=(None if qp is None or self.qonly_dst is None
+                      else put(qp[self.qonly_dst])),
             run_ptr_host=host(self.run_ptr),
             qonly_ptr_host=host(self.qonly_ptr))
         self._dev = {key: got}

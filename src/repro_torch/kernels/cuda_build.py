@@ -158,11 +158,14 @@ class SingleLaunchKernel(KernelWrapper):
     def __init__(self, lib: CudaLibrary, entry: str) -> None:
         super().__init__(lib)
         self.entry = entry
+        self._fn = None
 
     def _launch(self, device, *args) -> None:
         """Call the C entry point with ``args`` and the current stream of
         ``device``; raise on a nonzero CUDA error."""
-        fn = getattr(self.build(), self.entry)
+        fn = self._fn
+        if fn is None:
+            fn = self._fn = getattr(self.build(), self.entry)
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
             err = fn(*args, stream)

@@ -1,14 +1,25 @@
-"""Blocked flash attention: the wrapper of the CUDA kernel (K4).
+"""Blocked flash attention: the wrapper of the CUDA kernels (K4).
 
 Replaces the TPU kernel ``src/repro/kernels/flash_attention.py::
-flash_attention_pallas``.  The CUDA source is ``csrc/flash_attention.cu``:
-one CTA per (64 query rows, head, batch) runs the online softmax over KV
-tiles of 64 keys staged in shared memory, with the (m, l, acc) state in
-float32 registers, the causal, window and ragged-edge masks computed in
-the kernel, and the tiles wholly outside every row's mask skipped.  Bytes
-set the least time for its work; the kernel is far above that, with few
-CTAs doing float32 products serially on the CUDA cores (the note in the
-source says more).
+flash_attention_pallas``.  The CUDA source is ``csrc/flash_attention.cu``,
+with one kernel per dtype:
+
+* bfloat16, what the served models call: the tensor cores
+  (``mma.sync`` m16n8k16, bf16 in, float32 sums).  One CTA of 8 warps per
+  (64 query rows, head, batch) holds its Q tile in registers and streams
+  K and V tiles of 128 keys through a two-stage ``cp.async`` ring in shared
+  memory; two warps share each 16 rows, half of each tile's keys each,
+  with the row max exchanged so that both see the sequential running max.
+  The online softmax state (m, l, acc) stays in float32 registers, and the
+  probabilities are rounded to bf16 for the product with v (as
+  ``models.layers.attention_ref`` rounds them), with l summed from the
+  float32 ones.
+* float32: the CUDA cores, four threads per query row, float32 throughout
+  (what the float32 fixtures are held to within 1e-4).
+
+Both compute the causal, window and ragged-edge masks in the kernel and
+skip the tiles wholly outside every row's mask.  Bytes set the least time
+for the work; the note in the source says what holds each kernel above it.
 
 ``flash_attention(q, k, v, causal=True, window=0)`` takes CUDA tensors of
 one dtype, float32 or bfloat16 — q: (B,T,H,hd); k, v: (B,S,KV,hd) with H
@@ -17,8 +28,9 @@ strides, and returns o (B,T,H,hd) in q's dtype, contiguous.  It launches
 one grid per call, on PyTorch's current stream, and raises on anything
 else, including inputs with a query row that sees no key
 (``ref.check_attention_domain``).  ``block_q`` and ``block_kv`` are
-accepted for the plain version's sake and ignored: the kernel's tiles are
-64 by 64.  The plain version is ``ref.flash_attention_plain``;
+accepted for the plain version's sake and ignored: the kernels choose
+their tiles.  The plain version is ``ref.flash_attention_plain``
+(``round_p=True`` rounds the probabilities as the bf16 kernel does);
 ``ops.flash_attention`` runs ``models.layers.attention_ref`` for tensors
 on the CPU.
 """

@@ -1,4 +1,4 @@
-"""The batched (max,+) level kernel: CUDA wrapper, plain version and build.
+"""The batched (max,+) level kernels: CUDA wrapper, plain version and build.
 
 Replaces the TPU kernel ``src/repro/core/backend.py::_pallas_level_step``
 (with its level loop ``_accumulate_jax`` and the padding step
@@ -6,18 +6,26 @@ Replaces the TPU kernel ``src/repro/core/backend.py::_pallas_level_step``
 level CSR directly, so nothing is padded.
 
 * ``level_step(lv, F, clamp, R_out)`` runs the whole level recurrence in
-  place on ``F``.  A tensor on the card goes to the CUDA kernel (float32 or
-  float64) or the call raises; a tensor on the CPU takes the plain version.
-  There is no fallback from one to the other.
+  place on ``F``.  A tensor on the card goes to the CUDA kernels (float32
+  or float64) or the call raises; a tensor on the CPU takes the plain
+  version.  There is no fallback from one to the other.
+* On the card the call follows ``lv.level_plan(narrow_width(k))``: each
+  maximal stretch of narrow levels (runs plus queue-only vertices at most
+  ``narrow_width(k)``) is one launch of the segment kernel, in which one
+  CTA per tile of ``COLUMN_TILE`` sweep columns runs level after level with
+  a barrier between them (the columns are independent longest-path
+  problems); each wider level is one launch of the per-level kernel.
 * ``level_step_plain`` is the plain PyTorch version: a port of the
   reference numpy kernel (``_accumulate_numpy``) in torch ops, one Python
-  iteration per level.  The CPU tests use it, and ``chip_smoke.py`` holds
-  the kernel against it on the card.
-* ``level_step.launches`` counts the grids the kernel launched (one per
-  non-empty level per call) and ``level_step.calls`` the calls that
-  reached the kernel.  Both are plain integers; nothing else adds to them.
+  iteration per level, over all levels or one plan row's range.  The CPU
+  tests use it, and ``chip_smoke.py`` holds the kernels against it on the
+  card.
+* ``level_step.launches`` counts the grids launched, ``level_step.levels``
+  the non-empty dependent levels they ran and ``level_step.calls`` the
+  calls that reached the kernels.  All are plain integers; nothing else
+  adds to them.
 
-What bounds the kernel: the number of dependent levels, not bytes or
+What bounds the kernels: the number of dependent levels, not bytes or
 operations (see the note in the CUDA source).
 
 The shared library is built at first use by ``cuda_build.CudaLibrary``.
@@ -25,7 +33,7 @@ The shared library is built at first use by ``cuda_build.CudaLibrary``.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -41,13 +49,17 @@ def _np_max(a: torch.Tensor, b) -> torch.Tensor:
 
 
 def level_step_plain(lv, F: torch.Tensor, clamp: bool = True,
-                     R_out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The plain PyTorch version of the level kernel, in place on ``F``.
+                     R_out: Optional[torch.Tensor] = None,
+                     levels: Optional[Tuple[int, int]] = None
+                     ) -> torch.Tensor:
+    """The plain PyTorch version of the level kernels, in place on ``F``.
 
     A line-by-line port of the reference numpy kernel: per level, a
     segmented max by offset stepping over the runs of equal destination,
     the ready times into ``R_out``, the slot-chain fold, the clamp and one
-    add; then the queue-only vertices.  Works on any device."""
+    add; then the queue-only vertices.  ``levels = (l0, l1)`` runs levels
+    ``l0..l1-1`` only (default: all of ``1..n_levels-1``), as one row of
+    the kernels' plan does.  Works on any device."""
     dv = lv.device_arrays(F.device)
     rptr = dv.run_ptr_host.tolist()
     maxlens = lv.level_maxlens()
@@ -55,7 +67,7 @@ def level_step_plain(lv, F: torch.Tensor, clamp: bool = True,
     qp = dv.qpred
     qptr = dv.qonly_ptr_host.tolist() if dv.qonly_ptr_host is not None \
         else None
-    for lvl in range(1, lv.n_levels):
+    for lvl in range(*(levels or (1, lv.n_levels))):
         r0, r1 = rptr[lvl], rptr[lvl + 1]
         if r0 != r1:
             d = rdst[r0:r1]
@@ -83,15 +95,33 @@ def level_step_plain(lv, F: torch.Tensor, clamp: bool = True,
     return F
 
 
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int32, ctypes.c_void_p,
-                                     ctypes.c_void_p, ctypes.c_int64,
-                                     ctypes.c_int32, ctypes.c_void_p,
-                                     ctypes.POINTER(ctypes.c_int64)]
+#: The segment kernel's shape, handed to nvcc: threads per CTA, and the
+#: most sweep columns one CTA owns.
+SEGMENT_THREADS = 512
+COLUMN_TILE = 8
+#: A level joins its neighbours in one launch when its (run, column) pairs
+#: take at most this many passes of one CTA's threads.  A pass costs about
+#: one round of dependent gathers (~0.5-1 us); past four of them, spreading
+#: the level over the card in a launch of its own (~4 us) is no slower.
+SEGMENT_PASSES = 4
+
+
+def narrow_width(k: int) -> int:
+    """The widest level (runs plus queue-only vertices) that a segment
+    takes, for ``k`` sweep columns."""
+    return SEGMENT_THREADS * SEGMENT_PASSES // max(1, min(k, COLUMN_TILE))
+
+
+_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int32, ctypes.c_void_p,
+                                      ctypes.c_void_p, ctypes.c_int64,
+                                      ctypes.c_int32, ctypes.c_void_p,
+                                      ctypes.POINTER(ctypes.c_int64)]
 
 
 class LevelStep(KernelWrapper):
-    """The CUDA level kernel behind one callable, with its launch counts
-    and its build."""
+    """The CUDA level kernels behind one callable, with their counts and
+    their build.  ``levels`` counts the non-empty dependent levels the
+    kernels ran (``launches`` the grids, ``calls`` the calls)."""
 
     def __init__(self) -> None:
         # -fmad=false: each finish is one IEEE add, never a fused one
@@ -99,14 +129,21 @@ class LevelStep(KernelWrapper):
             "level_step",
             {name: (_ARGTYPES, ctypes.c_int)
              for name in ("level_step_f32", "level_step_f64")},
-            extra_flags=("-fmad=false",)))
+            extra_flags=("-fmad=false",
+                         f"-DLEVEL_STEP_SEG_THREADS={SEGMENT_THREADS}",
+                         f"-DLEVEL_STEP_COL_TILE={COLUMN_TILE}")))
+        self.levels = 0
+
+    def reset_counts(self) -> None:
+        super().reset_counts()
+        self.levels = 0
 
     # -------------------------------------------------------------- launch
     def __call__(self, lv, F: torch.Tensor, clamp: bool = True,
                  R_out: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Run the level recurrence in place on ``F`` ((rows, k), or (n,)
         for one column) and return it.  CPU tensors take the plain
-        version; CUDA tensors take the kernel."""
+        version; CUDA tensors take the kernels."""
         if F.device.type == "cpu":
             return level_step_plain(lv, F, clamp=clamp, R_out=R_out)
         if F.device.type != "cuda":
@@ -116,12 +153,14 @@ class LevelStep(KernelWrapper):
         if R_out is not None:
             R2 = R_out.view(-1, 1) if R_out.ndim == 1 else R_out
         self._check(lv, F2, R2)
-        if F2.shape[1] == 0 or lv.n_levels < 2:
+        k = int(F2.shape[1])
+        if k == 0 or lv.n_levels < 2:
             return F
         fn_name = ("level_step_f32" if F2.dtype == torch.float32
                    else "level_step_f64")
         lib = self.build()
         dv = lv.device_arrays(F2.device)
+        plan = lv.level_plan(narrow_width(k))
 
         def ptr(t):
             return None if t is None else t.data_ptr()
@@ -131,14 +170,17 @@ class LevelStep(KernelWrapper):
             stream = torch.cuda.current_stream(F2.device).cuda_stream
             err = getattr(lib, fn_name)(
                 ptr(dv.esrc), ptr(dv.run_dst), ptr(dv.run_starts),
-                ptr(dv.run_lens), dv.run_ptr_host.ctypes.data, ptr(dv.qpred),
-                ptr(dv.qonly_dst),
+                ptr(dv.run_lens), ptr(dv.run_src0), ptr(dv.run_qp),
+                ptr(dv.qonly_dst), ptr(dv.qonly_qp),
+                ptr(dv.run_ptr), ptr(dv.qonly_ptr),
+                dv.run_ptr_host.ctypes.data,
                 (dv.qonly_ptr_host.ctypes.data
                  if dv.qonly_ptr_host is not None else None),
-                int(lv.n_levels), F2.data_ptr(), ptr(R2), int(F2.shape[1]),
+                plan.ctypes.data, len(plan), F2.data_ptr(), ptr(R2), k,
                 int(bool(clamp)), stream, ctypes.byref(launched))
         self.calls += 1
         self.launches += int(launched.value)
+        self.levels += int(plan[:, 3].sum())
         self.lib.check(err, "level_step kernel launch")
         return F
 

@@ -160,14 +160,17 @@ def check_attention_domain(T: int, S: int, window: int) -> None:
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
-                          block_q: int = 128, block_kv: int = 128):
+                          block_q: int = 128, block_kv: int = 128,
+                          round_p: bool = False):
     """What the TPU kernel ``flash_attention_pallas`` computes, for any T
     and S: q, k, v in float32; an online softmax over KV blocks of
     ``block_kv`` keys with the (m, l, acc) state in float32; the mask
     ``qpos >= kpos`` (``causal``) and ``qpos - kpos < window``
     (``window`` > 0); masked scores -1e30; the output ``acc / max(l,
-    1e-30)`` cast to q's dtype.  Unlike ``layers.attention_ref`` the
-    probabilities stay in float32 for the product with v.
+    1e-30)`` cast to q's dtype.  The probabilities stay in float32 for the
+    product with v, unless ``round_p``: then they are rounded to v's dtype
+    first, as ``layers.attention_ref`` and the bf16 CUDA kernel do (``l``
+    is summed from the float32 probabilities either way).
 
     q: (B,T,H,hd); k, v: (B,S,KV,hd) -> (B,T,H,hd).  The CUDA kernel's
     yardstick on the card; never on the models' path."""
@@ -201,8 +204,9 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
             p = torch.exp(s - m_new[..., None])
             corr = torch.exp(m - m_new)
             l = l * corr + p.sum(dim=-1)
+            pv = p.to(v.dtype).float() if round_p else p
             acc = acc * corr[..., None] + torch.einsum("bhqk,bkhd->bhqd",
-                                                       p, vb)
+                                                       pv, vb)
             m = m_new
         out[:, q0:q0 + block_q] = (acc / torch.clamp_min(l, 1e-30)[..., None]
                                    ).transpose(1, 2)

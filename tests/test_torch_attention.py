@@ -1,8 +1,10 @@
 """The port's flash attention on the CPU: the plain version of K4
 (``kernels.ref.flash_attention_plain``) against the reference package's
 Pallas kernel in interpret mode, at ragged lengths against the port's
-``attention_ref``; the dispatch of ``ops.flash_attention`` for CPU
-tensors; the kernel wrapper's checks.
+``attention_ref``; the plain version that rounds P to bf16 as the bf16
+kernel does (``round_p=True``) against the Pallas kernel and the JAX
+package's ``attention_ref`` in bf16; the dispatch of
+``ops.flash_attention`` for CPU tensors; the kernel wrapper's checks.
 
 Inputs are numpy arrays made from a seed and handed to both packages.
 Against the Pallas kernel (the same float32 online softmax, summed in
@@ -137,3 +139,90 @@ def test_kernel_wrapper_checks_and_never_falls_back():
     with pytest.raises(ValueError, match="differ"):
         kernel(q, k, v[:, :8])
     assert kernel.launches == n0
+
+
+# --------------------------- plain version that rounds P as the bf16 kernel
+
+from repro.models.layers import attention_ref as jax_attention_ref  # noqa: E402
+
+#: (B, T, S, H, KV, hd, causal, window): heads of 8, 40 and 112, a window,
+#: non-causal T != S, a ragged T
+ROUND_P_SHAPES = [
+    (2, 64, 64, 4, 2, 8, True, 0),
+    (1, 64, 64, 4, 4, 40, True, 0),
+    (1, 128, 128, 4, 2, 112, True, 0),
+    (1, 128, 128, 4, 2, 64, True, 32),
+    (2, 32, 96, 4, 1, 40, False, 0),
+    (1, 37, 37, 4, 2, 16, True, 0),
+]
+#: round_p against attention_ref, which rounds P the same way: in float32
+#: the two differ only in summation order.  That can flip the bf16
+#: rounding of an output (one ulp, at most 2^-7 of the value) or of a
+#: probability p (which moves an output by 2^-8 p/l |v|, measured up to
+#: 1.2e-4 of the largest output): rtol 2^-7, atol 2^-10 of the largest.
+ROUND_P_ULP = 2.0 ** -7
+ROUND_P_ATOL = 2.0 ** -10
+
+
+@pytest.mark.parametrize("B,T,S,H,KV,hd,causal,window", ROUND_P_SHAPES)
+def test_round_p_plain_matches_pallas_bf16(B, T, S, H, KV, hd, causal,
+                                           window):
+    """The plain version with P rounded to bf16 against the Pallas kernel
+    in interpret mode (which keeps P in float32), within the reference's
+    own bf16 tolerance (2e-2; rounding P adds at most 2^-9 of each
+    probability).  One block of all T and S rows, so any T and S pass the
+    Pallas kernel's divisibility assertion."""
+    J, P = both(inputs(B, T, S, H, KV, hd, seed=hd + T), "bfloat16")
+    want = flash_attention_pallas(*J, causal=causal, window=window,
+                                  block_q=T, block_kv=S, interpret=True)
+    got = flash_attention_plain(*P, causal=causal, window=window,
+                                block_kv=64, round_p=True)
+    assert got.dtype == torch.bfloat16
+    close(got, want, TOL["bfloat16"])
+
+
+@pytest.mark.parametrize("B,T,S,H,KV,hd,causal,window", ROUND_P_SHAPES)
+def test_round_p_plain_matches_jax_attention_ref_bf16(B, T, S, H, KV, hd,
+                                                      causal, window):
+    """Against the JAX package's attention_ref in bf16 (P rounded to v's
+    dtype before the product there too), over the same KV chunks, within
+    ROUND_P_ULP and ROUND_P_ATOL; without round_p the difference is
+    larger."""
+    J, P = both(inputs(B, T, S, H, KV, hd, seed=hd + T), "bfloat16")
+    chunk = 32 if S % 32 == 0 else S
+    want = np.asarray(jax_attention_ref(*J, causal=causal, window=window,
+                                        chunk_kv=chunk), np.float32)
+    got = flash_attention_plain(*P, causal=causal, window=window,
+                                block_kv=chunk, round_p=True)
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=ROUND_P_ULP,
+                               atol=ROUND_P_ATOL * np.abs(want).max())
+    unrounded = flash_attention_plain(*P, causal=causal, window=window,
+                                      block_kv=chunk)
+    d_round = np.abs(got.float().numpy() - want).max()
+    d_plain = np.abs(unrounded.float().numpy() - want).max()
+    assert d_round < d_plain
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 16),
+                                           (False, 0)])
+def test_round_p_is_inert_in_float32(causal, window):
+    """Rounding P to v's dtype is the identity for float32 inputs."""
+    P = [torch.from_numpy(a) for a in inputs(1, 48, 48, 4, 2, 40, seed=2)]
+    a = flash_attention_plain(*P, causal=causal, window=window, block_kv=16)
+    b = flash_attention_plain(*P, causal=causal, window=window, block_kv=16,
+                              round_p=True)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("bkv", [64, 128])
+def test_tile_probe_source_changes_only_the_tile(bkv):
+    """The tile-size probe (``launch.att_tiles``) builds the kernel's own
+    source with one line changed: the keys per bf16 tile."""
+    from repro_torch.kernels.cuda_build import CSRC
+    from repro_torch.launch.att_tiles import variant_source
+    src = (CSRC / "flash_attention.cu").read_text().splitlines()
+    var = variant_source(bkv).splitlines()
+    diff = [(a, b) for a, b in zip(src, var) if a != b]
+    assert len(var) == len(src)
+    assert len(diff) <= 1
+    assert f"constexpr int kTcBKV = {bkv};" in var

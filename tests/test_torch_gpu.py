@@ -235,6 +235,23 @@ def test_flash_attention_reads_strides(card):
     assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_reads_unaligned_strides(card, dtype):
+    """Views whose strides and base are not 16-byte aligned (the bf16
+    kernel then loads element by element) give the contiguous inputs'
+    result bit for bit."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    g = torch.Generator(device=card).manual_seed(6)
+    wide = [torch.randn(2, 80, 4, 41, generator=g, device=card).to(dtype)
+            for _ in range(3)]
+    views = [t[..., 1:] for t in wide]                   # hd=40, odd strides
+    assert views[0].stride(1) % 8 and views[0].data_ptr() % 16
+    a = flash_attention(*views, causal=True, window=24)
+    b = flash_attention(*(t.contiguous() for t in views), causal=True,
+                        window=24)
+    assert torch.equal(a, b)
+
+
 def test_serving_transformers_on_the_card_launch_k4(card):
     from repro_torch.configs import ARCHS
     from repro_torch.kernels.flash_attention import flash_attention
@@ -247,3 +264,108 @@ def test_serving_transformers_on_the_card_launch_k4(card):
         assert flash_attention.launches - n0 == \
             cfg.n_layers * res["stats"]["prefills"]
         assert res["tokens"] == 12
+
+
+# -------------------------------- K1's plan on the card: wide and narrow
+
+def _layered_port_dag(widths, seed=0):
+    """Layers of the given widths, each vertex fed by one to three of the
+    layer before (the port's EDag)."""
+    from repro_torch.core.graph import EDag
+    rng = np.random.default_rng(seed)
+    src, dst, prev, n = [], [], [], 0
+    for w in widths:
+        cur = list(range(n, n + w))
+        for v in cur:
+            if prev:
+                for u in rng.choice(prev, size=min(len(prev), int(
+                        rng.integers(1, 4))), replace=False):
+                    src.append(int(u))
+                    dst.append(v)
+        prev, n = cur, n + w
+    is_mem = rng.random(n) < 0.5
+    return EDag.from_arrays(np.ones(n), is_mem, np.where(is_mem, 8.0, 0.0),
+                            np.asarray(src, dtype=np.int64),
+                            np.asarray(dst, dtype=np.int64))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("slot", [False, True])
+def test_kernel_plan_mixing_wide_and_narrow_levels(card, dtype, slot):
+    """k = 11 columns (two column tiles of the segment kernel) over levels
+    of 2 to 600 vertices: narrow stretches in one launch each, wide levels
+    alone; bitwise equal to the plain version, one grid per plan row."""
+    from repro_torch.kernels.level_step import narrow_width
+    g = _layered_port_dag((5, 600, 3, 2, 7, 400, 1, 300, 4, 4))
+    g._finalize()
+    if slot:
+        # 300 slots of each kind keep the wide levels wide
+        _, plan_ = S._record_plan(g, g._sim_lists(), 300, 300, 50.0, 1.0,
+                                  persist=False)
+        lv = plan_.lv
+    else:
+        lv = g._level_csr()
+    k = 11
+    plan = lv.level_plan(narrow_width(k))
+    assert plan[:, 2].any() and not plan[:, 2].all()
+    rows = lv.n + (1 if slot else 0)
+    base = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (rows, k)) * 50).to(card, dtype)
+    if slot:
+        base[-1] = 0
+    for clamp in (False, True):
+        Fk, Fp = base.clone(), base.clone()
+        Rk, Rp = torch.zeros_like(base), torch.zeros_like(base)
+        n0, v0 = level_step.launches, level_step.levels
+        level_step(lv, Fk, clamp=clamp, R_out=Rk)
+        assert level_step.launches - n0 == len(plan)
+        assert level_step.levels - v0 == int(plan[:, 3].sum())
+        level_step_plain(lv, Fp, clamp=clamp, R_out=Rp)
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(Fk), _bits(Fp))
+        assert torch.equal(_bits(Rk), _bits(Rp))
+
+
+def test_kernel_replay_plan_is_one_launch(card):
+    """A replay plan's levels are all narrow: one grid per call."""
+    g, plan = _plan()
+    base = torch.ones((plan.lv.n + 1, 11), device=card)
+    base[-1] = 0
+    n0 = level_step.launches
+    level_step(plan.lv, base)
+    assert level_step.launches - n0 == 1
+
+
+# ------------------------------------- bf16 K4 against both plain versions
+
+#: bf16 K4 against the plain version that rounds P to bf16 as the kernel
+#: does: within one bf16 ulp of each output (2^-7 of it: the float32 sums
+#: run in another order, which can flip the output's rounding) plus 2^-10
+#: of the largest (the same can flip a probability's rounding).
+ROUND_P_TOL = (2.0 ** -7, 2.0 ** -10)
+
+
+@pytest.mark.parametrize("B,T,S,H,KV,hd,causal,window", [
+    (2, 64, 64, 4, 2, 8, True, 0), (1, 64, 64, 4, 4, 40, True, 0),
+    (1, 128, 128, 4, 2, 112, True, 0), (1, 128, 128, 4, 2, 64, True, 32),
+    (2, 32, 96, 4, 1, 40, False, 0), (1, 37, 37, 4, 2, 16, True, 0)])
+def test_bf16_kernel_vs_both_plain_versions(card, B, T, S, H, KV, hd,
+                                            causal, window):
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import flash_attention_plain
+    g = torch.Generator(device=card).manual_seed(T + hd)
+    q = torch.randn(B, T, H, hd, generator=g, device=card).bfloat16()
+    k, v = (torch.randn(B, S, KV, hd, generator=g,
+                        device=card).bfloat16() for _ in range(2))
+    o = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert o.dtype == torch.bfloat16 and torch.isfinite(o).all()
+    plain = flash_attention_plain(q, k, v, causal=causal, window=window,
+                                  block_kv=128)
+    assert _rel(o, plain) < ATT_TOL[torch.bfloat16]
+    rounded = flash_attention_plain(q, k, v, causal=causal, window=window,
+                                    block_kv=128, round_p=True)
+    rtol, atol = ROUND_P_TOL
+    err = (o.double() - rounded.double()).abs()
+    assert (err <= rtol * rounded.double().abs() +
+            atol * rounded.double().abs().max()).all()
