@@ -19,11 +19,13 @@ Phases, each timed; any failure ends the run with a non-zero exit:
              version and a per-level ``scatter_reduce`` yardstick on the
              main path's shapes, and HPCG's uncached DAG pass (1.79M
              vertices, 49,304 levels, k=1).  Then the WKV6 and SSD kernels against
-             their plain versions (chunked at 256, and sequential) at
-             full-width heads, T = 1, 128, 256, a nonzero initial state,
-             the decay-e^-1 input on which the TPU kernels overflow, and a
-             grouped SSD case: finite, within ``REC_TOL``; and their times
-             at the serve shapes.  Then the flash-attention kernel against
+             their plain versions (chunked at 256, blocked as the kernels
+             block, and sequential) at full-width heads, T = 1, 37, 128,
+             200, 256 and 2048, a nonzero initial state, the decay-e^-1
+             input on which the TPU kernels overflow, and grouped SSD
+             cases: finite, within ``REC_TOL``; and their times (CUDA
+             events and the kernels' own device time) at the serve shapes
+             and at a 2048-token prompt.  Then the flash-attention kernel against
              its plain version in float32 and bf16 (``ATT_CASES``: the
              served models' prefill shapes, zamba2's shared attention,
              heads of 96, 8 and 40, a window, non-causal T=128 over S=384,
@@ -60,8 +62,9 @@ Phases, each timed; any failure ends the run with a non-zero exit:
              often as the model's layers say (K4 once per attention layer
              per prefill, never in decode), one prefill and one decode
              step through the kernels held block by block to the plain
-             versions'; prefill ms, decode ms per step, tok/s, peak memory
-             and the profile's busy and idle share.
+             versions' (the recurrent states to the sequential form);
+             prefill ms, decode ms per step, tok/s, peak memory and the
+             profile's busy and idle share.
 7. report  — the card line, the ``{"kernels": [...]}`` line, and last the
              ``{"ok": true, "device": {...}}`` line.
 
@@ -556,6 +559,8 @@ SERVE_TOL = 2.0 ** -6
 #: the serve shapes of each recurrence: (label, batch, T); the prefill runs
 #: one request at a time, the decode step all 4 slots
 SERVE_SHAPES = (("T=1", 4, 1), ("T=128", 1, 128))
+#: the timed shapes: the serve shapes and one long prompt
+REC_TIME_SHAPES = SERVE_SHAPES + (("T=2048", 1, 2048),)
 
 
 def wkv6_inputs(B, H, T, K, V, seed, fault=False):
@@ -597,34 +602,44 @@ def rel_err(a, b) -> float:
 
 def check_recurrences() -> dict:
     """K2 and K3 against their plain versions (chunked at the configs'
-    256, and sequential) on the card, at full-width heads: every output
-    finite, y and the final state within REC_TOL.  Returns per kernel the
-    cases, the largest |Δ| and the largest relative |Δ|."""
+    256, blocked as the kernels block, and sequential) on the card, at
+    full-width heads, T below one block, ragged, and 2048 long: every
+    output finite, y and the final state within REC_TOL.  Returns per
+    kernel the cases, the largest |Δ| and the largest relative |Δ|."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.ssd import ssd
     from repro_torch.kernels.wkv6 import wkv6
-    cases = [("wkv6", wkv6, ref.wkv6_chunked_ref, ref.wkv6_ref,
-              wkv6_inputs(4, 64, T, 64, 64, seed=T + int(f), fault=f),
-              f"B=4 H=64 T={T} K=V=64{' decay e^-1' if f else ''}")
-             for T, f in ((1, False), (128, False), (256, False),
-                          (256, True))]
-    cases += [("ssd", ssd, ref.ssd_chunked_ref, ref.ssd_ref,
-               ssd_inputs(2, 112, T, 64, 64, G, seed=T + G + int(f), fault=f),
-               f"B=2 H=112 T={T} P=N=64 G={G}"
+    cases = [("wkv6", wkv6, ref.wkv6_chunked_ref, ref.wkv6_blocked_ref,
+              ref.wkv6_ref,
+              wkv6_inputs(B, 64, T, 64, 64, seed=T + int(f), fault=f),
+              f"B={B} H=64 T={T} K=V=64{' decay e^-1' if f else ''}")
+             for B, T, f in ((4, 1, False), (4, 37, False), (4, 128, False),
+                             (4, 200, False), (4, 256, False),
+                             (4, 256, True), (1, 2048, False))]
+    cases += [("ssd", ssd, ref.ssd_chunked_ref, ref.ssd_blocked_ref,
+               ref.ssd_ref,
+               ssd_inputs(B, 112, T, 64, 64, G, seed=T + G + int(f), fault=f),
+               f"B={B} H=112 T={T} P=N=64 G={G}"
                f"{' decay e^-1' if f else ''}")
-              for T, G, f in ((1, 1, False), (128, 1, False),
-                              (256, 1, False), (256, 1, True),
-                              (128, 2, False))]
+              for B, T, G, f in ((2, 1, 1, False), (2, 37, 1, False),
+                                 (2, 128, 1, False), (2, 200, 1, False),
+                                 (2, 256, 1, False), (2, 256, 1, True),
+                                 (2, 128, 2, False), (2, 200, 2, False),
+                                 (1, 2048, 1, False))]
     out = {}
-    for name, kernel, chunked, seq, args, label in cases:
+    for name, kernel, chunked, blocked, seq, args, label in cases:
+        n0 = kernel.launches
         y, S = kernel(*args, chunk=256)
         torch.cuda.synchronize()
+        if kernel.launches != n0 + 1:
+            raise SystemExit(f"{name} {label}: {kernel.launches - n0} "
+                             f"launches in one call")
         if not (torch.isfinite(y).all() and torch.isfinite(S).all()):
             raise SystemExit(f"{name} {label}: non-finite output")
         errs = {}
         for form, fn in (("chunked", lambda *a: chunked(*a, chunk=256)),
-                         ("sequential", seq)):
+                         ("blocked", blocked), ("sequential", seq)):
             yp, Sp = fn(*args)
             errs[form] = (rel_err(y, yp), rel_err(S, Sp),
                           max(abs_err(y, yp), abs_err(S, Sp)))
@@ -633,16 +648,15 @@ def check_recurrences() -> dict:
                                  f"version: relative |Δ| y "
                                  f"{errs[form][0]:.3e} state "
                                  f"{errs[form][1]:.3e} > {REC_TOL}")
-        print(f"  {name} {label}: relative |Δ| (y, state) vs chunked "
-              f"{errs['chunked'][0]:.2e} {errs['chunked'][1]:.2e}, vs "
-              f"sequential {errs['sequential'][0]:.2e} "
-              f"{errs['sequential'][1]:.2e}", flush=True)
+        print(f"  {name} {label}: relative |Δ| (y, state) vs " +
+              ", ".join(f"{form} {e[0]:.2e} {e[1]:.2e}"
+                        for form, e in errs.items()), flush=True)
         rec = out.setdefault(name, dict(cases=0, max_abs_err=0.0,
                                         max_rel_err=0.0))
         rec["cases"] += 1
         rec["max_abs_err"] = max(rec["max_abs_err"], errs["chunked"][2])
-        rec["max_rel_err"] = max(rec["max_rel_err"], *errs["chunked"][:2],
-                                 *errs["sequential"][:2])
+        rec["max_rel_err"] = max(rec["max_rel_err"],
+                                 *(r for e in errs.values() for r in e[:2]))
     return out
 
 
@@ -688,14 +702,15 @@ def time_calls(fn, reps: int) -> float:
 
 
 def time_recurrences() -> dict:
-    """K2 and K3 at the serve shapes: the kernel's ms per launch (CUDA
-    events over 100 launches, wrapper included), the plain chunked
-    version's ms (chunk 256, 5 calls) and the bound."""
+    """K2 and K3 at the serve shapes and at one 2048-token prompt: the
+    kernel's ms per launch (CUDA events over 100 launches, wrapper
+    included) and its own device µs per launch (``device_us``), the plain
+    chunked version's ms (chunk 256, 5 calls) and the bound."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.ssd import ssd
     from repro_torch.kernels.wkv6 import wkv6
     out = {}
-    for label, B, T in SERVE_SHAPES:
+    for label, B, T in REC_TIME_SHAPES:
         for name, kernel, plain, args in (
                 ("wkv6", wkv6, ref.wkv6_chunked_ref,
                  wkv6_inputs(B, 64, T, 64, 64, seed=9)),
@@ -705,6 +720,7 @@ def time_recurrences() -> dict:
             out.setdefault(name, {})[label] = dict(
                 batch=B, T=T,
                 ms=time_calls(lambda: kernel(*args, chunk=256), 100),
+                device_us=device_us(lambda: kernel(*args, chunk=256)),
                 plain_ms=time_calls(lambda: plain(*args, chunk=256), 5),
                 bound_ms=bound, bound_by=by)
     for name, rows in out.items():
@@ -858,25 +874,31 @@ def attention_bound(B, T, S, H, KV, hd, causal, window, itemsize) -> tuple:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def device_us(fn, reps: int = 20):
+def device_us(fn, reps: int = 20, windows: int = 3):
     """Device microseconds per call of ``fn``: the CUDA kernels' device
     times under ``torch.profiler`` over ``reps`` calls after one warm-up,
-    summed and divided by ``reps`` (the host's launch cost is not in
-    it)."""
+    summed and divided by ``reps`` (the host's launch cost is not in it);
+    the median of ``windows`` such windows, as a window now and then
+    records no kernel at all."""
+    import statistics
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    per_call = []
+    for _ in range(windows):
+        fn()
         torch.cuda.synchronize()
-    dev = sum(getattr(ev, "self_device_time_total",
-                      getattr(ev, "self_cuda_time_total", 0.0))
-              for ev in prof.key_averages()
-              if getattr(ev, "device_type", None) == DeviceType.CUDA)
-    return dev / reps if dev > 0 else "not measured"
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        dev = sum(getattr(ev, "self_device_time_total",
+                          getattr(ev, "self_cuda_time_total", 0.0))
+                  for ev in prof.key_averages()
+                  if getattr(ev, "device_type", None) == DeviceType.CUDA)
+        if dev > 0:
+            per_call.append(dev / reps)
+    return statistics.median(per_call) if per_call else "not measured"
 
 
 def time_attention() -> dict:
@@ -960,13 +982,22 @@ def plain_attention(q, k, v, *, causal=True, window=0, block_q=128,
 class plain_kernels:
     """Within the block the models' kernels take their plain versions on
     the card: the chunked recurrences and ``attention_ref`` (for the
-    kernel-vs-plain comparison of a whole prefill)."""
+    kernel-vs-plain comparison of a whole prefill), or with
+    ``sequential`` the recurrences' sequential forms, the exact oracle."""
+
+    def __init__(self, sequential: bool = False):
+        self.sequential = sequential
 
     def __enter__(self):
         from repro_torch.kernels import ops, ref
         self.saved = ops.wkv6, ops.ssd, ops.flash_attention
-        ops.wkv6 = lambda *a, chunk=64: ref.wkv6_chunked_ref(*a, chunk=chunk)
-        ops.ssd = lambda *a, chunk=64: ref.ssd_chunked_ref(*a, chunk=chunk)
+        if self.sequential:
+            ops.wkv6 = lambda *a, chunk=64: ref.wkv6_ref(*a)
+            ops.ssd = lambda *a, chunk=64: ref.ssd_ref(*a)
+        else:
+            ops.wkv6 = lambda *a, chunk=64: ref.wkv6_chunked_ref(*a,
+                                                                 chunk=chunk)
+            ops.ssd = lambda *a, chunk=64: ref.ssd_chunked_ref(*a, chunk=chunk)
         ops.flash_attention = plain_attention
         return self
 
@@ -1009,9 +1040,14 @@ class block_compare:
     the kernels and through the plain versions; the kernels' result goes
     on.  Records the largest relative difference of the blocks' output
     hidden states and, for a recurrent block, of their recurrent states.
-    (Comparing only the final logits of the two paths measures the
-    random-init model's sensitivity instead: in bf16 it amplifies a
-    rounding flip from layer to layer.)"""
+    The recurrent states are held to the sequential form (a third run of
+    the block), the exact recurrence: the chunked plain form's own
+    rounding of its cumulative decays over a 128-token chunk reaches ~9e-6
+    of the state on zamba2's blocks, most of REC_TOL; the kernels' and the
+    chunked form's distances to it are recorded too.  (Comparing only the
+    final logits of the two paths measures the random-init model's
+    sensitivity instead: in bf16 it amplifies a rounding flip from layer
+    to layer.)"""
 
     def __init__(self, module, recurrent: bool):
         self.module, self.recurrent = module, recurrent
@@ -1019,6 +1055,7 @@ class block_compare:
     def __enter__(self):
         self.saved = self.module.block_apply
         self.blocks, self.worst_h, self.worst_state = 0, 0.0, 0.0
+        self.worst_state_chunked, self.chunked_vs_seq = 0.0, 0.0
 
         def both(*args):
             out_k = self.saved(*args)
@@ -1027,8 +1064,14 @@ class block_compare:
             self.blocks += 1
             self.worst_h = max(self.worst_h, rel_err(out_k[0], out_p[0]))
             if self.recurrent:
-                self.worst_state = max(self.worst_state,
-                                       rel_err(out_k[1]["S"], out_p[1]["S"]))
+                with plain_kernels(sequential=True):
+                    out_s = self.saved(*args)
+                Sk, Sp, Ss = out_k[1]["S"], out_p[1]["S"], out_s[1]["S"]
+                self.worst_state = max(self.worst_state, rel_err(Sk, Ss))
+                self.worst_state_chunked = max(self.worst_state_chunked,
+                                               rel_err(Sk, Sp))
+                self.chunked_vs_seq = max(self.chunked_vs_seq,
+                                          rel_err(Sp, Ss))
             return out_k
         self.module.block_apply = both
         return self
@@ -1202,8 +1245,9 @@ def serve_full_width(name: str, kernel, prompt_len: int, max_seq: int,
     and through the plain versions on the same inputs (``block_compare``)
     and every K4 call held to ``attention_ref`` (``attention_compare``):
     the attention outputs and the blocks' outputs within SERVE_TOL, the
-    recurrent states within REC_TOL.  The end-to-end prefill logits of the
-    two paths are reported, not held."""
+    recurrent states within REC_TOL of the recurrences' sequential form
+    (their distance to the chunked plain form is reported).  The
+    end-to-end prefill logits of the two paths are reported, not held."""
     import torch
     from repro_torch.configs import ARCHS
     from repro_torch.launch import serve
@@ -1262,8 +1306,8 @@ def serve_full_width(name: str, kernel, prompt_len: int, max_seq: int,
             f"attention calls (expected {want_att}) within "
             f"{att.worst:.3e}; {cmp.blocks} blocks (expected "
             f"{want_blocks}), hidden state {cmp.worst_h:.3e} (> "
-            f"{SERVE_TOL:.3e}?), recurrent state {cmp.worst_state:.3e} "
-            f"(> {REC_TOL}?)")
+            f"{SERVE_TOL:.3e}?), recurrent state vs the sequential form "
+            f"{cmp.worst_state:.3e} (> {REC_TOL}?)")
     err = rel_err(lk, lp)
     prof = profile_serve(api, params, prompt_tokens(cfg, prompt_len, seed=2),
                          max_seq)
@@ -1278,13 +1322,17 @@ def serve_full_width(name: str, kernel, prompt_len: int, max_seq: int,
         attention_rel_err=att.worst, attention_calls=att.calls,
         block_h_rel_err=cmp.worst_h,
         block_state_rel_err=cmp.worst_state,
+        block_state_rel_err_vs_chunked=cmp.worst_state_chunked,
+        block_state_chunked_vs_sequential=cmp.chunked_vs_seq,
         logits_rel_err_vs_plain=err, profile=prof,
         peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30, card=card)
     print(f"  serve {name}: prefill {out['prefill_ms']:.2f} ms/request, "
           f"decode {out['decode_ms_per_step']:.2f} ms/step, "
           f"{out['tok_per_s']:.1f} tok/s; kernels vs plain: attention "
           f"{att.worst:.2e} ({att.calls} calls), blocks {cmp.worst_h:.2e} "
-          f"(state {cmp.worst_state:.2e}), end-to-end logits {err:.2e}; "
+          f"(state vs sequential {cmp.worst_state:.2e}, vs chunked "
+          f"{cmp.worst_state_chunked:.2e}; chunked vs sequential "
+          f"{cmp.chunked_vs_seq:.2e}), end-to-end logits {err:.2e}; "
           f"peak {out['peak_gib']:.1f} GiB ({card})", flush=True)
     del params
     torch.cuda.empty_cache()
@@ -1434,7 +1482,8 @@ def main() -> int:
                  "src/repro/kernels/rwkv6_wkv.py:72"),
                 ("ssd", "src/repro_torch/csrc/ssd.cu",
                  "src/repro/kernels/mamba2_ssd.py:70")):
-            t1, t128 = rec_times[name]["T=1"], rec_times[name]["T=128"]
+            t1, t128, t2048 = (rec_times[name][f"T={T}"]
+                               for T in (1, 128, 2048))
             recs.append(dict(
                 name=name, route="cuda", source=src, replaces=tpu,
                 launches=serve_launches[name],
@@ -1442,9 +1491,14 @@ def main() -> int:
                 ms=t128["ms"], plain_ms=t128["plain_ms"],
                 bound_ms=t128["bound_ms"], bound_by=t128["bound_by"],
                 library_ms=None, shape="prefill, one request, T=128",
+                device_us=t128["device_us"],
                 ms_t1=t1["ms"], plain_ms_t1=t1["plain_ms"],
                 bound_ms_t1=t1["bound_ms"], bound_by_t1=t1["bound_by"],
+                device_us_t1=t1["device_us"],
                 shape_t1="decode step, 4 slots, T=1",
+                ms_t2048=t2048["ms"], device_us_t2048=t2048["device_us"],
+                bound_ms_t2048=t2048["bound_ms"],
+                shape_t2048="one request, T=2048",
                 max_rel_err=rec_checks[name]["max_rel_err"],
                 kernel_cases=rec_checks[name]["cases"]))
         t = att_times["qwen3-0.6b"]

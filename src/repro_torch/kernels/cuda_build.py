@@ -12,6 +12,9 @@ started together).
 Every C entry point returns a CUDA error code (0 is success); each
 library also exports ``<name>_error_string(int)``, and ``check`` turns a
 nonzero code into a ``RuntimeError``.
+
+A source may include headers (``#include "x.cuh"``) from its own directory
+or ``csrc/``; their contents are part of the hash.
 """
 from __future__ import annotations
 
@@ -31,16 +34,19 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 #: flags every source is built with: Hopper with its architecture-specific
-#: features, optimised, position-independent, ptxas's register report.
-#: No fast-math anywhere (IEEE division, square root and denormals).
+#: features, optimised, position-independent, ptxas's register report, and
+#: ``csrc/`` on the include path (so a copy of a source elsewhere finds the
+#: shared headers).  No fast-math anywhere (IEEE division, square root and
+#: denormals).
 BASE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-I", str(CSRC))
 
 
 #: the state widths the recurrence kernels are instantiated for (K of WKV6,
-#: N of SSD) and their most threads per CTA (V of WKV6, P of SSD)
+#: N of SSD) and the most state columns they take (V of WKV6, P of SSD)
 HEAD_SIZES = (8, 16, 32, 64, 128)
-MAX_THREADS = 256
+MAX_WIDTH = 256
 
 
 def nvcc() -> str:
@@ -79,7 +85,9 @@ class CudaLibrary:
         with self._lock:
             if self._lib is not None:
                 return self._lib
-            src = self.src.read_bytes()
+            headers = {*self.src.parent.glob("*.cuh"), *CSRC.glob("*.cuh")}
+            src = self.src.read_bytes() + b"".join(
+                h.read_bytes() for h in sorted(headers))
             tag = hashlib.sha256(src + " ".join(self.flags).encode()
                                  ).hexdigest()[:12]
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -172,6 +180,12 @@ class SingleLaunchKernel(KernelWrapper):
         self.calls += 1
         self.launches += 1
         self.lib.check(err, f"{self.entry} launch")
+
+
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself if its data starts on a 16-byte boundary (the kernels'
+    16-byte loads need it), else a fresh copy, which does."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def check_inputs(name: str, tensors: dict, shapes: dict) -> torch.device:

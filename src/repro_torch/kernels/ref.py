@@ -16,8 +16,11 @@ computes.  Shapes follow the kernels' conventions:
 The chunked forms are what the reference's models run on the CPU, and
 what the port runs on the CPU (``kernels/ops.py``).  They take decay
 *differences* ``exp(cs_t - cs_s)`` inside a chunk, never ``exp(-cs)``
-alone, so they stay finite at any chunk length.  The sequential forms are
-the recurrence itself, the algorithm the CUDA kernels run.
+alone, so they stay finite at any chunk length.  The blocked forms are the
+CUDA kernels' blocking: the chunked form over blocks of a fixed length
+(WKV6 16 tokens, SSD 64), the last block shorter.  The sequential forms
+are the recurrence itself, one token at a time, the oracle all the others
+are held to.
 """
 from __future__ import annotations
 
@@ -82,6 +85,31 @@ def wkv6_chunked_ref(r, k, v, w, u, state, chunk: int = 64):
     return torch.stack(ys, dim=2).reshape(B, H, T, V), S
 
 
+def _blocked(chunked, args, timed, block: int):
+    """``chunked`` over the first T // block * block tokens in chunks of
+    ``block``, then over the shorter tail as one chunk, the state (the last
+    of ``args``) carried between.  ``timed``: the positions of the args
+    whose dim 2 is time."""
+    *rest, state = args
+    T = rest[timed[0]].shape[2]
+    cut = T - T % block
+    ys = []
+    for lo, hi in ((0, cut), (cut, T)):
+        if hi > lo:
+            part = [a[:, :, lo:hi] if i in timed else a
+                    for i, a in enumerate(rest)]
+            y, state = chunked(*part, state, chunk=min(block, hi - lo))
+            ys.append(y)
+    return torch.cat(ys, dim=2), state
+
+
+def wkv6_blocked_ref(r, k, v, w, u, state, block: int = 16):
+    """The blocking of the CUDA kernel (K2): ``wkv6_chunked_ref`` over blocks
+    of ``block`` tokens, the last one shorter."""
+    return _blocked(wkv6_chunked_ref, (r, k, v, w, u, state), (0, 1, 2, 3),
+                    block)
+
+
 # ------------------------------------------------------------------- Mamba2
 
 def ssd_ref(x, dt, A, Bm, Cm, D, state):
@@ -137,6 +165,13 @@ def ssd_chunked_ref(x, dt, A, Bm, Cm, D, state, chunk: int = 64):
         ys.append(y)
     y = torch.stack(ys, dim=2).reshape(B_, H, T, P)
     return y + D[None, :, None, None] * x, S
+
+
+def ssd_blocked_ref(x, dt, A, Bm, Cm, D, state, block: int = 64):
+    """The blocking of the CUDA kernel (K3): ``ssd_chunked_ref`` over blocks
+    of ``block`` tokens, the last one shorter."""
+    return _blocked(ssd_chunked_ref, (x, dt, A, Bm, Cm, D, state),
+                    (0, 1, 3, 4), block)
 
 
 # --------------------------------------------------------- flash attention

@@ -124,39 +124,121 @@ def _rel(a, b):
             b.double().abs().max()).item()
 
 
-@pytest.mark.parametrize("T", [1, 37, 128])
-def test_wkv6_kernel_vs_plain(card, T):
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.wkv6 import wkv6
-    g = torch.Generator(device=card).manual_seed(T)
+#: lengths that reach both code paths of K2 (token steps below 16, blocks
+#: of 16 with a ragged tail above) and of K3 (below 64, blocks of 64)
+REC_T = [1, 15, 16, 17, 37, 50, 128, 200, 1024]
+
+
+def _wkv6_args(card, T, seed, fault=False):
+    g = torch.Generator(device=card).manual_seed(seed)
     B, H, K, V = 2, 3, 64, 64
     r, k, v = (torch.randn(B, H, T, n, generator=g, device=card)
                for n in (K, K, V))
-    w = torch.rand(B, H, T, K, generator=g, device=card) * 0.5 + 0.45
+    w = (torch.full((B, H, T, K), float(np.exp(-1.0)), device=card) if fault
+         else torch.rand(B, H, T, K, generator=g, device=card) * 0.5 + 0.45)
     u = torch.randn(H, K, generator=g, device=card) * 0.1
     s0 = torch.randn(B, H, K, V, generator=g, device=card) * 0.1
-    n0 = wkv6.launches
-    y, S = wkv6(r, k, v, w, u, s0)
-    assert wkv6.launches == n0 + 1
-    yp, Sp = ref.wkv6_ref(r, k, v, w, u, s0)
-    assert _rel(y, yp) < 1e-5 and _rel(S, Sp) < 1e-5
+    return r, k, v, w, u, s0
 
 
-@pytest.mark.parametrize("G", [1, 2])
-def test_ssd_kernel_vs_plain(card, G):
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.ssd import ssd
-    g = torch.Generator(device=card).manual_seed(G)
-    B, H, T, P, N = 2, 4, 50, 64, 64
+def _ssd_args(card, T, G, seed, fault=False):
+    g = torch.Generator(device=card).manual_seed(seed)
+    B, H, P, N = 2, 4, 64, 64
     x = torch.randn(B, H, T, P, generator=g, device=card)
-    dt = torch.rand(B, H, T, generator=g, device=card)
-    A = -torch.rand(H, generator=g, device=card) - 0.5
+    if fault:
+        dt = torch.full((B, H, T), 0.7, device=card)
+        A = -torch.ones(H, device=card)
+    else:
+        dt = torch.rand(B, H, T, generator=g, device=card)
+        A = -torch.rand(H, generator=g, device=card) - 0.5
     Bm, Cm = (torch.randn(B, G, T, N, generator=g, device=card) * 0.4
               for _ in range(2))
     D = torch.randn(H, generator=g, device=card)
     s0 = torch.randn(B, H, P, N, generator=g, device=card) * 0.1
-    y, S = ssd(x, dt, A, Bm, Cm, D, s0)
-    yp, Sp = ref.ssd_ref(x, dt, A, Bm, Cm, D, s0)
+    return x, dt, A, Bm, Cm, D, s0
+
+
+def _one_launch(kernel, args):
+    """One call of ``kernel``: it must launch exactly one grid and give
+    finite outputs."""
+    n0 = kernel.launches
+    y, S = kernel(*args)
+    torch.cuda.synchronize()
+    assert kernel.launches == n0 + 1
+    assert torch.isfinite(y).all() and torch.isfinite(S).all()
+    return y, S
+
+
+@pytest.mark.parametrize("T", REC_T)
+def test_wkv6_kernel_vs_plain(card, T):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.wkv6 import wkv6
+    args = _wkv6_args(card, T, seed=T)
+    y, S = _one_launch(wkv6, args)
+    yp, Sp = ref.wkv6_ref(*args)
+    assert _rel(y, yp) < 1e-5 and _rel(S, Sp) < 1e-5
+
+
+@pytest.mark.parametrize("G", [1, 2])
+@pytest.mark.parametrize("T", REC_T)
+def test_ssd_kernel_vs_plain(card, T, G):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd import ssd
+    args = _ssd_args(card, T, G, seed=T + G)
+    y, S = _one_launch(ssd, args)
+    yp, Sp = ref.ssd_ref(*args)
+    assert _rel(y, yp) < 1e-5 and _rel(S, Sp) < 1e-5
+
+
+@pytest.mark.parametrize("kind", ["wkv6", "ssd"])
+def test_recurrence_kernels_fault1(card, kind):
+    """T=256 with decay e^-1 (WKV6) or dt=0.7, A=-1 (SSD), on which the TPU
+    kernels' exp(-cs) overflows: finite and within 1e-5 of the sequential
+    plain version."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd import ssd
+    from repro_torch.kernels.wkv6 import wkv6
+    if kind == "wkv6":
+        args = _wkv6_args(card, 256, seed=7, fault=True)
+        y, S = _one_launch(wkv6, args)
+        yp, Sp = ref.wkv6_ref(*args)
+    else:
+        args = _ssd_args(card, 256, 1, seed=7, fault=True)
+        y, S = _one_launch(ssd, args)
+        yp, Sp = ref.ssd_ref(*args)
+    assert _rel(y, yp) < 1e-5 and _rel(S, Sp) < 1e-5
+
+
+@pytest.mark.parametrize("T", [15, 37, 200])
+@pytest.mark.parametrize("kind", ["wkv6", "ssd"])
+def test_recurrence_kernels_odd_widths_and_offsets(card, kind, T):
+    """State widths that are not a multiple of 4 (V, P = 30: the kernels'
+    4-byte copies) and inputs that do not start on 16 bytes (contiguous
+    views one float into a buffer, which the wrappers copy): one launch,
+    within 1e-5 of the sequential plain version."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd import ssd
+    from repro_torch.kernels.wkv6 import wkv6
+
+    def offset(t):
+        buf = torch.empty(t.numel() + 1, device=card)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        return view
+    if kind == "wkv6":
+        a = list(_wkv6_args(card, T, seed=T))
+        a[2] = torch.randn(2, 3, T, 30, device=card)
+        a[5] = torch.randn(2, 3, 64, 30, device=card) * 0.1
+        kernel, plain = wkv6, ref.wkv6_ref
+    else:
+        a = list(_ssd_args(card, T, 2, seed=T))
+        a[0] = torch.randn(2, 4, T, 30, device=card)
+        a[6] = torch.randn(2, 4, 30, 64, device=card) * 0.1
+        kernel, plain = ssd, ref.ssd_ref
+    a = [offset(t) if t.dim() == 4 else t for t in a]
+    assert all(t.data_ptr() % 16 for t in a if t.dim() == 4)
+    y, S = _one_launch(kernel, a)
+    yp, Sp = plain(*a)
     assert _rel(y, yp) < 1e-5 and _rel(S, Sp) < 1e-5
 
 

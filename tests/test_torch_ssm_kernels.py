@@ -1,13 +1,15 @@
 """The port's recurrence kernels on the CPU: the plain versions of K2
-(WKV6) and K3 (SSD) against the reference package's oracles and its
-Pallas kernels in interpret mode, state streaming across calls, the
-fault-1 input on which the Pallas kernels overflow, and the dispatch.
+(WKV6) and K3 (SSD) — chunked, and blocked as the CUDA kernels block —
+against the reference package's oracles and its Pallas kernels in
+interpret mode, state streaming across calls, the fault-1 input on which
+the Pallas kernels overflow, and the dispatch.
 
 Inputs are numpy arrays made from a seed and handed to both packages.
 Tolerances are relative to the largest |reference| value: 2e-6 between
 the two packages' chunked forms (the same float32 algorithm, summed in
 another order; measured ~5e-7), 2e-5 between a chunked and a sequential
-form (float32 rounding of the cumulative log-decay; measured <= 5e-6).
+form (float32 rounding of the cumulative log-decay; measured <= 5e-6),
+and between the kernels' blocked forms and the sequential oracle.
 The CUDA kernels themselves are held to these plain versions on the card
 (``tests/test_torch_gpu.py``, ``chip_smoke.py``).
 """
@@ -173,6 +175,50 @@ def test_fault1_ssd_finite_where_pallas_overflows():
     yc, Sc = port(ops.ssd, a, chunk=256)
     assert np.isfinite(yc).all() and np.isfinite(Sc).all()
     assert rel_err(yc, y0) < CHUNK_VS_SEQ and rel_err(Sc, S0) < CHUNK_VS_SEQ
+
+
+#: ragged lengths for the kernels' blocking: shorter than one block (K2's
+#: 16, K3's 64), one past a block, several blocks and a tail
+BLOCKED_T = (1, 15, 17, 37, 200)
+
+
+@pytest.mark.parametrize("T", BLOCKED_T)
+def test_wkv6_blocked_matches_reference(T):
+    """K2's blocking (16 tokens, the tail shorter) against the JAX
+    package's sequential oracle."""
+    a = wkv_inputs(1, 2, T, 16, 24, seed=T)
+    y0, S0 = jref.wkv6_ref(*a)
+    yb, Sb = port(ref.wkv6_blocked_ref, a)
+    assert yb.shape == (1, 2, T, 24)
+    assert rel_err(yb, y0) < CHUNK_VS_SEQ and rel_err(Sb, S0) < CHUNK_VS_SEQ
+
+
+@pytest.mark.parametrize("G", [1, 2])
+@pytest.mark.parametrize("T", BLOCKED_T)
+def test_ssd_blocked_matches_reference(T, G):
+    """K3's blocking (64 tokens, the tail shorter) against the JAX
+    package's sequential oracle, with one group and with two."""
+    a = ssd_inputs(1, 4, T, 16, 16, G, seed=T)
+    y0, S0 = jref.ssd_ref(*a)
+    yb, Sb = port(ref.ssd_blocked_ref, a)
+    assert yb.shape == (1, 4, T, 16)
+    assert rel_err(yb, y0) < CHUNK_VS_SEQ and rel_err(Sb, S0) < CHUNK_VS_SEQ
+
+
+@pytest.mark.parametrize("kind", ["wkv6", "ssd"])
+def test_fault1_blocked_finite(kind):
+    """The fault-1 inputs (T=256, decay e^-1 and dt=0.7, A=-1) through the
+    kernels' blocking: finite and equal to the sequential oracle."""
+    if kind == "wkv6":
+        a = wkv_inputs(1, 2, 256, 64, 64, seed=7, decay=np.exp(-1.0))
+        y0, S0 = jref.wkv6_ref(*a)
+        yb, Sb = port(ref.wkv6_blocked_ref, a)
+    else:
+        a = ssd_inputs(1, 4, 256, 64, 64, 1, seed=7, fault=True)
+        y0, S0 = jref.ssd_ref(*a)
+        yb, Sb = port(ref.ssd_blocked_ref, a)
+    assert np.isfinite(yb).all() and np.isfinite(Sb).all()
+    assert rel_err(yb, y0) < CHUNK_VS_SEQ and rel_err(Sb, S0) < CHUNK_VS_SEQ
 
 
 def test_kernel_wrappers_take_cuda_tensors_only():
