@@ -13,11 +13,17 @@ Phases, each timed; any failure ends the run with a non-zero exit:
              ready times and the clamp, on seeded random DAGs, on a layered
              DAG whose plan mixes wide and narrow levels (k=11, two column
              tiles), on PolyBench gemm's DAG (N=20, k=1 and 11) and on its
-             real replay plan (m=4, 8 ALU slots).  F and R must be bitwise
-             equal, with one grid per plan row.  Then timings: the
+             real replay plan (m=4, 8 ALU slots), on the union replay plan
+             of gemm, atax and lu at N=20 over (m, ALU slots) = (2, 0) and
+             (4, 8) (``seg_ptr`` blocks), on gemm's class-mode replay plan
+             with its object classes and on the class-mode union plan.  F
+             and R must be bitwise equal, with one grid per plan row.  Then
+             timings: the
              kernels (µs per dependent level, grids per call), the plain
              version and a per-level ``scatter_reduce`` yardstick on the
-             main path's shapes, and HPCG's uncached DAG pass (1.79M
+             main path's shapes, the union plan against its blocks
+             replayed member by member (grids, µs per level), and HPCG's
+             uncached DAG pass (1.79M
              vertices, 49,304 levels, k=1).  Then the WKV6 and SSD kernels against
              their plain versions (chunked at 256, blocked as the kernels
              block, and sequential) at full-width heads, T = 1, 37, 128,
@@ -47,13 +53,30 @@ Phases, each timed; any failure ends the run with a non-zero exit:
              value must equal ``src/repro_torch/configs/paper_expected.json``
              (the JAX package's results), and the kernel's launch counter
              must grow in every figure.
-5. fixture — the serving path at five small fixture configs (float32) with
+5. suite   — the suite and placement path at ``benchmarks/perf_core.py``'s
+             and ``perf_placement.py``'s sizes, against
+             ``src/repro_torch/configs/suite_expected.json`` (the JAX
+             package's results), every float exact: (a) ``suite_sweep_grid``
+             over PAPER_15 at N=20 (15 traces, 554,380 vertices), 13 alphas
+             × m in (2, 4, 8) × (0, 8) ALU slots, default float32 policy and
+             budget, cold, memo-warm, against the per-member ``sweep_grid``
+             loop, and under a budget that splits it into replay groups and
+             column chunks (replay chunks all on the card); (b)
+             ``suite_t_inf_sweep`` and ``suite_grid_report`` with the
+             simulated grid; (c) the class-vector grid with each member's
+             object classes (6 rows as wide as the largest object count);
+             (d) ``search_placement``, oracle (traces of at most 8 objects;
+             gemver has 9) and greedy, on each PAPER_15 trace and HPCG's CG
+             solve at n=8, with ``oracle <= greedy <= all_remote``.  Prints
+             seconds, K1's grids, levels and calls, and µs per level for
+             the union and the member loop.
+6. fixture — the serving path at five small fixture configs (float32) with
              seeded numpy weights (rwkv6, zamba2, qwen3, granite-moe with
              token drops, internvl2 with its 256 patch positions): greedy
              tokens equal and prefill logits close to
              ``src/repro_torch/configs/serve_expected.json`` (the JAX
              package's results).
-6. serve   — the serving launcher (``repro_torch.launch.serve.run``) at
+7. serve   — the serving launcher (``repro_torch.launch.serve.run``) at
              full width: rwkv6-7b, zamba2-7b, qwen3-0.6b,
              granite-moe-1b-a400m and internvl2-2b (bf16 compute, float32
              master weights from a seed), 4 slots, 8 requests of 128 text
@@ -65,7 +88,7 @@ Phases, each timed; any failure ends the run with a non-zero exit:
              versions' (the recurrent states to the sequential form);
              prefill ms, decode ms per step, tok/s, peak memory and the
              profile's busy and idle share.
-7. report  — the card line, the ``{"kernels": [...]}`` line, and last the
+8. report  — the card line, the ``{"kernels": [...]}`` line, and last the
              ``{"ok": true, "device": {...}}`` line.
 
 Usage: python3 chip_smoke.py   (from the root of a checkout, one card)
@@ -203,15 +226,18 @@ def base_matrix(lv, k: int, seed: int, dtype, slot: bool,
     return torch.from_numpy(base).to("cuda", dtype)
 
 
-def check_kernel(lv, k: int, seed: int, label: str):
+def check_kernel(lv, k: int, seed: int, label: str, wide: bool = False):
     """Kernels vs plain version, bitwise, over dtype x R_out x clamp, on
-    dirty bases, with one grid per row of the plan.  Returns (cases,
-    largest |kernel - plain| seen)."""
+    dirty bases, with one grid per row of the plan; ``wide``: the plan must
+    hold wide-level rows.  Returns (cases, largest |kernel - plain|
+    seen)."""
     import torch
     from repro_torch.kernels.level_step import (level_step, level_step_plain,
                                                 narrow_width)
     slot = lv.qpred is not None
     plan = lv.level_plan(narrow_width(k))
+    if wide and not (plan[:, 2] != 0).any():
+        raise SystemExit(f"{label}: no wide level at k={k}")
     n_cases, err = 0, 0.0
     for dtype in (torch.float32, torch.float64):
         for want_r in (False, True):
@@ -381,24 +407,17 @@ def hpcg_dag_pass(reps: int = 3) -> dict:
                 narrow_segments=int((plan[:, 2] == 0).sum()))
 
 
-def profile_sweep(name: str = "gemm", N: int = 20) -> dict:
-    """One fig 10/11 sweep (``sweep_report`` with the simulated points) of
-    one PolyBench kernel under ``torch.profiler``: wall seconds, the
-    device's busy seconds (sum of kernel times on the card) and the level
-    kernel's share of them."""
+def profile_call(fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: wall seconds, the
+    device's busy seconds (kernel times summed), the level kernels' share
+    of them and the device's idle share."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.apps import polybench
-    from repro_torch.core import sweep_report
-    from repro_torch.launch import paper
-    g = polybench.trace_kernel(name, N)
-    g._finalize()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        sweep_report(g, paper.ANALYSIS.alpha_sweep, simulate_points=True,
-                     compute_slots=paper.SIM_COMPUTE_SLOTS, use_cache=False)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     busy = level = 0.0
@@ -409,11 +428,23 @@ def profile_sweep(name: str = "gemm", N: int = 20) -> dict:
         if "level_kernel" in ev.key or "segment_kernel" in ev.key:
             level += dev_us
     if busy <= 0:
-        return dict(kernel=f"{name} N={N}", wall_s=wall,
-                    device_busy_s="not measured")
-    return dict(kernel=f"{name} N={N}", wall_s=wall, device_busy_s=busy / 1e6,
+        return dict(wall_s=wall, device_busy_s="not measured")
+    return dict(wall_s=wall, device_busy_s=busy / 1e6,
                 level_kernel_s=level / 1e6,
                 device_idle_share=max(0.0, 1.0 - busy / 1e6 / wall))
+
+
+def profile_sweep(name: str = "gemm", N: int = 20) -> dict:
+    """One fig 10/11 sweep (``sweep_report`` with the simulated points) of
+    one PolyBench kernel under ``torch.profiler`` (``profile_call``)."""
+    from repro_torch.apps import polybench
+    from repro_torch.core import sweep_report
+    from repro_torch.launch import paper
+    g = polybench.trace_kernel(name, N)
+    g._finalize()
+    return dict(kernel=f"{name} N={N}", **profile_call(lambda: sweep_report(
+        g, paper.ANALYSIS.alpha_sweep, simulate_points=True,
+        compute_slots=paper.SIM_COMPUTE_SLOTS, use_cache=False)))
 
 
 # --------------------------------------------------------------- main phase
@@ -950,6 +981,340 @@ def time_attention() -> dict:
     return out
 
 
+# ---------------------------------------------------------------- suite phase
+
+#: the members of the union replay plan K1 is held on in phase "kernel"
+UNION_MEMBERS = ("gemm", "atax", "lu")
+UNION_PAIRS = [(2, 0), (4, 8)]
+#: the wide union: the PAPER_15 members but the five deepest, at the pairs
+#: of phase "suite"'s m=8 call.  Its blocks side by side make 121 of its
+#: levels (70 of its class-mode plan's) wider than a segment takes at
+#: k=13, so its plan mixes wide-level grids with narrow segments, as the
+#: PAPER_15 union's does.
+WIDE_DROP = ("2mm", "3mm", "doitgen", "gemm", "symm")
+WIDE_PAIRS = [(8, 0), (8, 8)]
+
+
+def class_row(width: int):
+    """Class 0 local at alpha 1, the rest remote at 200."""
+    import numpy as np
+    row = np.full(width, 200.0)
+    row[0] = 1.0
+    return row
+
+
+def with_classes(members) -> int:
+    """Give each member its ``object_class_map`` overlay; returns the
+    largest object count."""
+    from repro_torch.core import object_class_map, objects_from_edag
+    width = 0
+    for g in members:
+        objs = objects_from_edag(g)
+        g.set_mem_classes(object_class_map(g, objs))
+        width = max(width, len(objs))
+    return width
+
+
+def union_plans(N: int = 20):
+    """K1's suite plan shapes: the union replay plan of ``UNION_MEMBERS``
+    at N over ``UNION_PAIRS`` (block-diagonal, ``seg_ptr`` set, blocks
+    interleaving per level), gemm's class-mode replay plan with its
+    ``object_class_map`` classes (slot provenance chains; ``class_row``)
+    and the class-mode union plan of the same members; then the wide
+    union of the PAPER_15 members but ``WIDE_DROP`` over ``WIDE_PAIRS``
+    and its class-mode plan.  Returns (suite, union plan, class-mode plan,
+    class-mode union plan, wide suite, wide union plan, wide class-mode
+    union plan)."""
+    from repro_torch.apps import polybench
+    from repro_torch.core import EDagSuite
+    from repro_torch.core import scheduler as S
+    from repro_torch.core import suite as SU
+    members = [polybench.trace_kernel(nm, N) for nm in UNION_MEMBERS]
+    suite = EDagSuite(members, names=list(UNION_MEMBERS))
+    union = SU._build_suite_plan(suite, UNION_PAIRS, 1.0, 50.0, False)
+    width = with_classes(members)
+    row = class_row(width)
+    g = members[0]
+    _, cplan = S._record_plan_classes(
+        g, g._sim_lists(), 4, 8, row, g.mem_class_column(width), 1.0,
+        None, False)
+    cunion = SU._build_suite_plan(suite, UNION_PAIRS, 1.0, row, False,
+                                  n_classes=width)
+    for g in members:
+        g.set_mem_classes(None)
+    names = [nm for nm in polybench.PAPER_15 if nm not in WIDE_DROP]
+    wide = EDagSuite([polybench.trace_kernel(nm, N) for nm in names],
+                     names=names)
+    wunion = SU._build_suite_plan(wide, WIDE_PAIRS, 1.0, 50.0, False)
+    width = with_classes(wide.members)
+    wcunion = SU._build_suite_plan(wide, WIDE_PAIRS, 1.0, class_row(width),
+                                   False, n_classes=width)
+    for g in wide.members:
+        g.set_mem_classes(None)
+    return suite, union, cplan, cunion, wide, wunion, wcunion
+
+
+def union_vs_members(suite, union, pairs, k: int, reps: int = 10) -> dict:
+    """K1 on a union replay plan against the same blocks replayed one
+    member plan at a time (float32, ready times, ``k`` columns): ms per
+    call, grids, levels and µs per dependent level of each, and the
+    union's bound."""
+    import torch
+    from repro_torch.kernels.level_step import level_step
+
+    def timed(lv, seed):
+        bases = [base_matrix(lv, k, seed + i, torch.float32, True)
+                 for i in range(reps)]
+        n0, l0, c0 = (level_step.launches, level_step.levels,
+                      level_step.calls)
+        ms = time_ms(lambda F: level_step(
+            lv, F, clamp=False, R_out=torch.zeros_like(F)), bases)
+        calls = level_step.calls - c0
+        return (ms, (level_step.launches - n0) / calls,
+                (level_step.levels - l0) / calls)
+
+    ms, grids, levels = timed(union.lv, 7)
+    bound, bound_by = bound_ms(union.lv, k, 4, True)
+    out = dict(union=dict(ms=ms, launches_per_call=grids,
+                          levels_per_call=levels,
+                          us_per_level=1e3 * ms / max(levels, 1),
+                          bound_ms=bound, bound_by=bound_by, n=union.lv.n,
+                          levels=union.lv.n_levels, k=k))
+    ms = grids = levels = 0.0
+    for m, cs in pairs:
+        for g in suite.members:
+            t, n, lvl = timed(replay_plan(g, m, cs).lv, 7)
+            ms, grids, levels = ms + t, grids + n, levels + lvl
+    out["members"] = dict(plans=len(pairs) * len(suite.members), ms=ms,
+                          launches_per_call=grids, levels_per_call=levels,
+                          us_per_level=1e3 * ms / max(levels, 1))
+    return out
+
+
+def check_equal(got, want, label: str) -> None:
+    """``got`` (arrays, dicts, lists) equal to the fixture's values, every
+    float exactly."""
+    from suite_expected import plain    # as the fixture was written
+    diff = same(json.loads(json.dumps(plain(got))), want, label)
+    if diff:
+        raise SystemExit(f"{label} differs from the JAX package's:\n" +
+                         "\n".join(diff[:20]))
+
+
+class k1_counts:
+    """K1's grids, levels and calls inside the block, and its seconds."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.kernels.level_step import level_step
+        torch.cuda.synchronize()
+        self.k, self.t0 = level_step, time.perf_counter()
+        self.n0 = (level_step.launches, level_step.levels, level_step.calls)
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        torch.cuda.synchronize()
+        self.seconds = time.perf_counter() - self.t0
+        k = self.k
+        self.grids, self.levels, self.calls = (
+            k.launches - self.n0[0], k.levels - self.n0[1],
+            k.calls - self.n0[2])
+        return False
+
+    def row(self) -> dict:
+        return dict(seconds=self.seconds, k1_grids=self.grids,
+                    k1_levels=self.levels, k1_calls=self.calls)
+
+
+def fallbacks(want: int, label: str) -> int:
+    """The suite's fallback points since the last check (then reset),
+    which must be the JAX package's count on the same grid: a level kernel
+    that is wrong on a union plan fails certification, and the per-member
+    fallback would answer those points correctly from member plans."""
+    from repro_torch.core import suite as SU
+    got = SU.stats["fallback_points"]
+    SU.stats.reset()
+    if got != want:
+        raise SystemExit(f"suite grid ({label}): {got} fallback points, "
+                         f"the JAX package's run {want}")
+    return got
+
+
+def run_suite(expected: dict) -> dict:
+    """Phase "suite": the suite and placement path on the card against
+    the JAX package's values (``configs/suite_expected.json``).
+
+    (a) ``suite_sweep_grid`` over PAPER_15 at N=20 with the fixture's grid
+    (default float32 policy and budget), cold and memo-warm, against the
+    per-member ``sweep_grid`` loop (memo-warm) and once more under a
+    budget that splits the suite into replay groups and column chunks;
+    (b) ``suite_t_inf_sweep`` and ``suite_grid_report(simulate_points=
+    True)``; (c) the class-vector grid with each member's
+    ``object_class_map`` overlay; (d) ``search_placement`` (oracle where
+    the trace has at most ``MAX_ORACLE_OBJECTS`` objects, as
+    ``benchmarks/perf_placement.py`` does, and greedy) on each trace."""
+    import numpy as np
+    from repro_torch.apps import hpcg, polybench
+    from repro_torch.core import (EDagSuite, object_class_map,
+                                  objects_from_edag, search_placement,
+                                  suite_grid_report, suite_sweep_grid,
+                                  suite_t_inf_sweep, sweep_grid)
+    from repro_torch.core import backend as B
+    from repro_torch.core import scheduler as S
+    from repro_torch.core import suite as SU
+    from repro_torch.core.placement import MAX_ORACLE_OBJECTS
+    from repro_torch.core.plan import REPLAY_BYTES_PER_CELL, ExecPolicy
+    cfg = expected["grid_config"]
+    alphas = np.asarray(cfg["alphas"])
+    ms, css = cfg["ms"], cfg["compute_slots"]
+    names = expected["names"]
+    out: dict = {}
+    t0 = time.perf_counter()
+    members = [polybench.trace_kernel(nm, expected["N"]) for nm in names]
+    for g in members:
+        g._finalize()
+    if [g.n_vertices for g in members] != expected["n_vertices"]:
+        raise SystemExit("suite: the traces' sizes differ from the JAX "
+                         "package's")
+    out["trace_s"] = time.perf_counter() - t0
+    suite = EDagSuite(members, names=names)
+    n_rows = suite.n_vertices * len(ms) * len(css)
+
+    # (a) the union grid, cold, warm, against the member loop
+    B.reset_stats()
+    S.stats.reset()
+    SU.stats.reset()
+    with k1_counts() as cold:
+        grid = suite_sweep_grid(suite, alphas, ms=ms, compute_slots=css)
+    check_equal(grid, expected["grid"], "suite grid (cold)")
+    out["cold"] = dict(cold.row(), record_runs=S.stats["record_runs"],
+                       record_s=S.stats["record_seconds"],
+                       union_plans=SU.stats["plans_built"],
+                       fallback_points=fallbacks(
+                           expected["grid_fallback_points"], "cold"))
+    with k1_counts() as warm:
+        grid = suite_sweep_grid(suite, alphas, ms=ms, compute_slots=css)
+    out["warm_fallback_points"] = fallbacks(
+        expected["grid_fallback_points"], "memo-warm")
+    with k1_counts() as loop:
+        per_member = np.stack([sweep_grid(g, alphas, ms=ms,
+                                          compute_slots=css)
+                               for g in members])
+    check_equal(grid, expected["grid"], "suite grid (memo-warm)")
+    check_equal(per_member, expected["grid"], "per-member sweep_grid")
+    out["suite"] = dict(warm.row(), profile=profile_call(
+        lambda: suite_sweep_grid(suite, alphas, ms=ms, compute_slots=css)))
+    out["loop"] = loop.row()
+    out["suite_over_loop"] = loop.seconds / warm.seconds
+    out["us_per_level"] = dict(
+        suite=1e6 * warm.seconds / max(warm.levels, 1),
+        loop=1e6 * loop.seconds / max(loop.levels, 1))
+    # a budget that streams the largest member (doitgen) alone and splits
+    # the rest into column chunks
+    big = max(g.n_vertices for g in members) * len(css)
+    pol = ExecPolicy.resolve(
+        mem_budget=REPLAY_BYTES_PER_CELL * len(alphas) * (big - 1))
+    groups = SU._member_groups(suite, len(css), len(alphas), pol)
+    if len(groups) < 2:
+        raise SystemExit(f"suite: the split budget made {groups}")
+    rows0 = sum(members[i].n_vertices for i in groups[0]) * len(css)
+    SU.stats.reset()
+    with k1_counts() as split:
+        grid = suite_sweep_grid(suite, alphas, ms=ms, compute_slots=css,
+                                policy=pol)
+    check_equal(grid, expected["grid"], "suite grid (split budget)")
+    out["split"] = dict(split.row(), groups=groups,
+                        chunk=pol.points_chunk(rows0, len(alphas)),
+                        fallback_points=fallbacks(
+                            expected["grid_fallback_points"],
+                            "split budget"))
+    if B.stats["cuda_chunks"] <= 0 or B.stats["cpu_chunks"] != 0:
+        raise SystemExit(f"suite replay chunks did not run on the card: "
+                         f"{dict(B.stats)}")
+    out["replay_stats"] = B.stats.snapshot()
+    out["default_chunk"] = ExecPolicy.resolve().points_chunk(
+        n_rows // len(ms), len(alphas))
+
+    # (b) the analytic side and the report
+    with k1_counts() as rep_t:
+        check_equal(suite_t_inf_sweep(suite, alphas), expected["t_inf"],
+                    "suite_t_inf_sweep")
+        rep = suite_grid_report(suite, alphas, ms=ms, compute_slots=css,
+                                simulate_points=True)
+    check_equal(rep, expected["report"], "suite_grid_report")
+    out["report"] = rep_t.row()
+
+    # (c) the class-vector grid, one overlay per member
+    want = expected["class_grid"]
+    n_obj = []
+    for g in members:
+        objs = objects_from_edag(g)
+        n_obj.append(len(objs))
+        g.set_mem_classes(object_class_map(g, objs))
+    if n_obj != want["n_objects"]:
+        raise SystemExit(f"suite: object counts {n_obj} != the JAX "
+                         f"package's {want['n_objects']}")
+    S.stats.reset()
+    SU.stats.reset()
+    with k1_counts() as cls:
+        cgrid = suite_sweep_grid(EDagSuite(members, names=names),
+                                 np.asarray(want["rows"]), ms=ms,
+                                 compute_slots=css)
+    check_equal(cgrid, want["grid"], "class-vector suite grid")
+    out["class_grid"] = dict(cls.row(), record_runs=S.stats["record_runs"],
+                             record_s=S.stats["record_seconds"],
+                             fallback_points=fallbacks(
+                                 want["fallback_points"], "class-vector"))
+    for g in members:
+        g.set_mem_classes(None)
+
+    # (d) the placement search
+    pc = expected["placement"]["config"]
+    graphs = dict(zip(names, members))
+    rows = []
+    with k1_counts() as place:
+        for tr in expected["placement"]["traces"]:
+            g = graphs.get(tr["name"])
+            if g is None:
+                g = hpcg.trace_cg(n=expected["placement"]["cg_n"])[0]
+            objects = objects_from_edag(g)
+            budget = sum(o.nbytes for o in objects) // 2
+            if [o.name for o in objects] != tr["objects"] or \
+                    budget != tr["budget"]:
+                raise SystemExit(f"placement {tr['name']}: objects or "
+                                 f"budget differ from the JAX package's")
+            reps = {}
+            for method in ("oracle", "greedy"):
+                if method == "oracle" and len(objects) > MAX_ORACLE_OBJECTS:
+                    continue
+                r = search_placement(
+                    g, pc["alpha_local"], pc["alpha_remote"], budget,
+                    objects=objects, m=pc["m"],
+                    compute_slots=pc["compute_slots"], method=method)
+                reps[method] = r
+                check_equal(dict(
+                    local=list(r.local), makespan=r.makespan,
+                    all_local=r.all_local, all_remote=r.all_remote,
+                    budgets=r.budgets, curve=r.curve,
+                    curve_local=[list(s) for s in r.curve_local],
+                    marginal=r.marginal, lam=[o.lam for o in r.objects]),
+                    tr[method], f"placement {tr['name']} {method}")
+            gr = reps["greedy"]
+            lo = reps["oracle"].makespan if "oracle" in reps else \
+                gr.makespan
+            if not lo <= gr.makespan <= gr.all_remote:
+                raise SystemExit(f"placement {tr['name']}: oracle <= "
+                                 f"greedy <= all_remote does not hold")
+            rows.append(dict(name=tr["name"], objects=len(objects),
+                             methods=sorted(reps), makespan=gr.makespan,
+                             all_remote=gr.all_remote))
+    out["placement"] = dict(place.row(), traces=len(rows),
+                            oracle_traces=sum("oracle" in r["methods"]
+                                              for r in rows))
+    return out
+
+
 # ------------------------------------------------------ serving phases
 
 def kernel_wrappers() -> dict:
@@ -1353,6 +1718,7 @@ def main() -> int:
               f"root of a checkout", file=sys.stderr)
         return 1
     sys.path.insert(0, str(SRC))
+    sys.path.insert(0, str(ROOT / "tools"))     # the fixture writers
     os.environ["EDAN_TORCH_BACKEND"] = "cuda"
     for knob in ("EDAN_X64", "EDAN_REPLAY_DTYPE", "EDAN_REPLAY_MEM_BUDGET"):
         os.environ.pop(knob, None)
@@ -1379,6 +1745,8 @@ def main() -> int:
             print(f"  {name}:\n" + (k.build_log.strip() or
                                     "  (library already built)"), flush=True)
 
+    suite_expected = json.loads((SRC / "repro_torch" / "configs" /
+                                 "suite_expected.json").read_text())
     with phase("kernel"):
         gemm = polybench.trace_kernel("gemm", 20)
         gplan = replay_plan(gemm, 4, 8)
@@ -1394,6 +1762,21 @@ def main() -> int:
                   (gemm._level_csr(), 1, 11, "gemm N=20"),
                   (gemm._level_csr(), n_alpha, 11, "gemm N=20"),
                   (gplan.lv, n_alpha, 11, "gemm N=20 replay m=4 cs=8")]
+        suite3, uplan, cplan, cuplan, wide, wplan, wcplan = union_plans()
+        # the suite grid's column count
+        k_suite = len(suite_expected["grid_config"]["alphas"])
+        cases += [(uplan.lv, n_alpha, 12,
+                   "union gemm+atax+lu N=20 replay (2,0)+(4,8)"),
+                  (cplan.lv, n_alpha, 13,
+                   "gemm N=20 class-mode replay m=4 cs=8"),
+                  (cuplan.lv, n_alpha, 14,
+                   "union gemm+atax+lu N=20 class-mode replay"),
+                  (wplan.lv, k_suite, 15,
+                   f"wide union of {len(wide.members)} PAPER_15 members "
+                   f"N=20 replay (8,0)+(8,8)", True),
+                  (wcplan.lv, k_suite, 16,
+                   f"wide union of {len(wide.members)} PAPER_15 members "
+                   f"N=20 class-mode replay (8,0)+(8,8)", True)]
         n_cases, max_err = 0, 0.0
         for case in cases:
             n, err = check_kernel(*case)
@@ -1407,6 +1790,10 @@ def main() -> int:
                                     True, reps=20, plain_reps=2))
         for key, m in meas.items():
             print(f"  {key}: {json.dumps(m)}", flush=True)
+        union_meas = dict(
+            narrow=union_vs_members(suite3, uplan, UNION_PAIRS, n_alpha),
+            wide=union_vs_members(wide, wplan, WIDE_PAIRS, k_suite))
+        print(f"  union vs members: {json.dumps(union_meas)}", flush=True)
         hpcg_pass = hpcg_dag_pass()
         print(f"  hpcg DAG pass: {json.dumps(hpcg_pass)}", flush=True)
         prof = profile_sweep()
@@ -1439,6 +1826,15 @@ def main() -> int:
         main_launches = level_step.launches
         main_calls = level_step.calls
         main_levels = level_step.levels
+
+    with phase("suite"):
+        reset_counts()
+        suite_res = run_suite(suite_expected)
+        suite_launches = read_counts()
+        if suite_launches["level_step"] <= 0:
+            raise SystemExit("the suite path never launched level_step")
+        print(f"  suite: {json.dumps(suite_res)}", flush=True)
+        print(f"  suite launches: {suite_launches}", flush=True)
 
     with phase("fixture"):
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -1475,7 +1871,18 @@ def main() -> int:
             launches_per_figure=dict(float32=launches, float64=launches_x64),
             stats=dict(float32=f32_stats, dirty_sweep=dirty_stats,
                        float64=B.stats.snapshot()),
-            measurements=meas, sweep_profile=prof, kernel_cases=n_cases)
+            measurements=meas, sweep_profile=prof, kernel_cases=n_cases,
+            launches_suite=suite_launches["level_step"],
+            us_per_level_union=union_meas["narrow"]["union"]["us_per_level"],
+            us_per_level_union_wide=union_meas["wide"]["union"][
+                "us_per_level"],
+            union_vs_members=union_meas,
+            suite=dict(suite_s=suite_res["suite"]["seconds"],
+                       loop_s=suite_res["loop"]["seconds"],
+                       grids=suite_res["suite"]["k1_grids"],
+                       levels=suite_res["suite"]["k1_levels"],
+                       loop_grids=suite_res["loop"]["k1_grids"],
+                       loop_levels=suite_res["loop"]["k1_levels"]))
         recs = []
         for name, src, tpu in (
                 ("wkv6", "src/repro_torch/csrc/wkv6.cu",

@@ -1,6 +1,7 @@
 """EDAN core: eDAG construction, the level kernel's dispatch, the cost
-model, the metrics and the batched §4 simulator."""
-from .graph import EDag, IndexOverflowError, MemLayering
+model, the metrics, the batched §4 simulator, union suites, object
+sensitivity and the placement search."""
+from .graph import EDag, IndexOverflowError, MemLayering, concat_edags
 from .plan import ExecPolicy, SweepSpec, replay_mem_budget
 from .cache import NoCache, SetAssociativeCache, make_cache
 from .trace import Tracer, Value, build_edag_from_trace
@@ -9,11 +10,20 @@ from .cost import (CostModelParams, memory_cost_bounds, total_cost_bounds,
 from .metrics import (lambda_abs, lambda_rel, bandwidth_utilization,
                       bandwidth_sweep, cost_vector, cost_matrix,
                       data_movement_over_time, grid_report, report,
-                      sweep_report, t_inf_sweep, Report)
+                      suite_grid_report, sweep_report, t_inf_sweep, Report)
 from .backend import (LevelCSR, column_quanta, level_accumulate, levelize,
-                      replay_accumulate, replay_dtype_policy, select_backend)
+                      replay_accumulate, replay_dtype_policy,
+                      segment_max_rows, segment_sum_rows, select_backend)
 from .scheduler import (simulate, simulate_batch, simulate_reference,
                         simulate_reference_classes, latency_sweep, sweep_grid)
+from .placement import (PlacementObject, PlacementReport,
+                        objects_from_edag, object_class_map,
+                        placement_rows, search_placement)
+from .suite import (EDagSuite, suite_latency_sweep, suite_sweep_grid,
+                    suite_t_inf_sweep)
+from .sensitivity import (AxisSensitivity, axis_latency_sweep,
+                          axis_latency_grid, object_sensitivity,
+                          suite_axis_latency_grid)
 
 __all__ = [
     "EDag", "IndexOverflowError", "MemLayering", "ExecPolicy", "SweepSpec",
@@ -27,4 +37,11 @@ __all__ = [
     "levelize", "replay_accumulate", "replay_dtype_policy", "select_backend",
     "simulate", "simulate_batch", "simulate_reference",
     "simulate_reference_classes", "latency_sweep", "sweep_grid",
+    "concat_edags", "suite_grid_report", "segment_max_rows",
+    "segment_sum_rows", "EDagSuite", "suite_latency_sweep",
+    "suite_sweep_grid", "suite_t_inf_sweep", "PlacementObject",
+    "PlacementReport", "objects_from_edag", "object_class_map",
+    "placement_rows", "search_placement", "object_sensitivity",
+    "AxisSensitivity", "axis_latency_sweep", "axis_latency_grid",
+    "suite_axis_latency_grid",
 ]

@@ -870,3 +870,36 @@ class EDag:
             path.append(v)
         path.reverse()
         return path
+
+    # ------------------------------------------------------------------ misc
+    def subgraph_stats(self) -> dict:
+        self._finalize()
+        return dict(n_vertices=self.n_vertices, n_edges=self.n_edges,
+                    n_mem=int(self.is_mem.sum()),
+                    bytes_total=float(self.nbytes.sum()))
+
+
+def concat_edags(graphs: Sequence[EDag]) -> EDag:
+    """Block-diagonal union of K eDAGs: member k's vertex ``v`` becomes
+    union vertex ``offsets[k] + v``.
+
+    Each member keeps its insertion order and every edge is offset with its
+    block, so the union keeps the topological insertion invariant (src <
+    dst) and no edge crosses a block boundary.  Because the blocks are
+    disconnected, every level-synchronous analysis of the union restricted
+    to block k is bit-identical to analyzing member k alone, while the
+    levels of independent members interleave: the level kernel sees wider
+    levels and ``max_k n_levels_k`` serial steps instead of ``sum_k``.
+    ``EDagSuite`` (``core/suite.py``) maps union results back to
+    members."""
+    u = EDag()
+    for g in graphs:
+        g._finalize()
+        n = g.n_vertices
+        if n == 0:
+            continue
+        base = u.add_vertex_block(g.cost, g.is_mem, g.nbytes,
+                                  label=list(g.labels()), n=n)[0]
+        if len(g.src):
+            u.add_edge_block(g.src + np.int64(base), g.dst + np.int64(base))
+    return u

@@ -276,6 +276,75 @@ def grid_report(g: EDag, alphas, ms=(4,), compute_slots=(0,),
     return out
 
 
+def suite_grid_report(suite, alphas, ms=(4,), compute_slots=(0,),
+                      params: CostModelParams = CostModelParams(),
+                      simulate_points: bool = False,
+                      backend: Optional[str] = None,
+                      mem_budget: Optional[int] = None,
+                      use_cache: bool = True,
+                      replay_dtype: Optional[str] = None, *,
+                      policy: Optional[ExecPolicy] = None) -> dict:
+    """§3.3 metrics for a whole ``EDagSuite`` on the alpha × m grid:
+    per-trace Eq 1-4 tables from one pass over the block-diagonal union.
+
+    The union's memory layering is one level pass (the blocks are
+    disconnected, so member layers come out bit-identical); per-trace W, D
+    and C are segmented reductions over the members' boundaries, the span
+    sweep is one union-batched pass (``suite_t_inf_sweep``), and the Eq 1-4
+    grid is one broadcast over the (trace, alpha, m) product.  Every
+    per-trace table equals ``grid_report(member_k, ...)`` exactly.
+
+    Returns ``dict(names, alphas, ms, compute_slots, W/D/C (K,), lam (K,
+    n_ms), t_inf (K, n_alphas), t_lower/t_upper/Lam (K, n_alphas, n_ms),
+    and simulated (K, n_alphas, n_ms, n_css) when requested)``."""
+    from .suite import _suite_sweep_grid_spec, suite_t_inf_sweep
+
+    pol = ExecPolicy.resolve(backend=backend, replay_dtype=replay_dtype,
+                             mem_budget=mem_budget, use_cache=use_cache,
+                             policy=policy)
+    spec = SweepSpec.make(alphas, ms=ms, compute_slots=compute_slots,
+                          unit=params.unit)
+    alphas = spec.alphas
+    ms_arr = np.asarray(spec.ms, dtype=np.int64)
+    css = np.asarray(spec.css, dtype=np.int64)
+    K = suite.n_traces
+    if K and suite.n_vertices:
+        u = suite.union
+        lay = u.mem_layers()                       # one union level pass
+        W = suite.segment_sum(u.is_mem.astype(np.float64)).astype(np.int64)
+        D = suite.segment_max(lay.level).astype(np.int64)
+        counts = np.diff(suite.offsets)
+        C = (counts - W) * params.unit
+        t_inf = suite_t_inf_sweep(suite, alphas, params.unit, policy=pol)
+    else:
+        W = D = np.zeros(K, dtype=np.int64)
+        C = np.zeros(K)
+        t_inf = np.zeros((K, len(alphas)))
+    lam = lambda_abs(W[:, None].astype(np.float64), D[:, None], ms_arr)
+    if alphas.ndim == 2:
+        # class rows bracket per-vertex assignments (see grid_report)
+        if alphas.shape[1]:
+            a_lo, a_hi = alphas.min(axis=1), alphas.max(axis=1)
+        else:
+            a_lo = a_hi = np.zeros(len(alphas))
+    else:
+        a_lo = a_hi = alphas
+    # Eq 1-2 bounds and Eq 4 Lambda over the (trace, alpha, m) grid
+    mem_lo = np.maximum(D[:, None], W[:, None] / ms_arr)[:, None, :] * \
+        a_lo[None, :, None]
+    mem_hi = lam[:, None, :] * a_hi[None, :, None]
+    denom = mem_hi + C[:, None, None]
+    Lam = np.divide(lam[:, None, :], denom,
+                    out=np.zeros_like(denom), where=denom > 0)
+    out = dict(names=list(suite.names), alphas=alphas, ms=ms_arr,
+               compute_slots=css, W=W, D=D, C=C, lam=lam, Lam=Lam,
+               t_inf=t_inf, t_lower=mem_lo + C[:, None, None],
+               t_upper=mem_hi + C[:, None, None])
+    if simulate_points:
+        out["simulated"] = _suite_sweep_grid_spec(suite, spec, pol)
+    return out
+
+
 def report(g: EDag, params: CostModelParams = CostModelParams()) -> Report:
     """One-stop §3.3 report for an eDAG: W, D, C, lambda, Lambda, B."""
     lay = g.mem_layers()

@@ -107,6 +107,12 @@ class ExecPolicy:
         n_chunks = -(-k // cap)
         return -(-k // n_chunks)
 
+    def cap_rows(self, k: int) -> int:
+        """Largest plan row count for which a full-width (rows, k) replay
+        chunk fits the budget: the suite's grouping rule shares this
+        divisor with ``points_chunk``, so grouping and chunking agree."""
+        return max(self.mem_budget // max(REPLAY_BYTES_PER_CELL * k, 1), 1)
+
 
 @dataclass(frozen=True, eq=False)
 class SweepSpec:
@@ -160,6 +166,22 @@ class SweepSpec:
     @property
     def n_points(self) -> int:
         return len(self.alphas)
+
+    @property
+    def n_uniq(self) -> int:
+        """Points the batched engines evaluate (after dedupe)."""
+        return len(self.uniq)
+
+    @property
+    def n_classes(self) -> Optional[int]:
+        """Latency-class count (class mode), else None."""
+        return int(self.alphas.shape[1]) if self.class_mode else None
+
+    @property
+    def pairs(self) -> list:
+        """The (m, compute_slots) machine grid, row-major like the output
+        axes of ``sweep_grid``."""
+        return [(m, cs) for m in self.ms for cs in self.css]
 
     def degenerate(self, m: int) -> bool:
         """Whether configuration ``m`` must take the reference loop."""

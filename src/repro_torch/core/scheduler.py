@@ -333,6 +333,17 @@ def _prov_check_arrays(prov: np.ndarray, m: int):
     return prov_ok, t_chk, need_chk
 
 
+def _aug_level_valid(level, asrc: np.ndarray, adst: np.ndarray,
+                     n: int) -> bool:
+    """Whether a stored level assignment is usable for the augmented
+    graph: a 1-D array of n values in ``[0, n)`` (a longest path has at
+    most n-1 edges, which also bounds the per-level arrays the partition
+    builder allocates) that respects every augmented edge."""
+    return (getattr(level, "ndim", 0) == 1 and len(level) == n and
+            (n == 0 or (level.min() >= 0 and level.max() < n)) and
+            (len(asrc) == 0 or bool((level[asrc] < level[adst]).all())))
+
+
 def _attach_queue_partition(lv, dst_r: np.ndarray, qpred: np.ndarray,
                             level: np.ndarray) -> None:
     """Attach slot chains to a level partition: ``qpred`` plus the
@@ -373,14 +384,20 @@ class _ReplayPlan:
     Holds the order-augmented eDAG in pop-order relabeling (a topological
     order of the augmented graph) as a ``backend.LevelCSR`` on the host,
     plus the issue orders and the arrays the per-point verification needs;
-    ``dev(device)`` hands their device copies, made once per device."""
+    ``dev(device)`` hands their device copies, made once per device.
+
+    ``level`` may carry a level assignment of the augmented graph made
+    earlier (a suite's block build); it is checked against the augmented
+    edges and recomputed if it does not respect them.  ``level_aug`` keeps
+    the assignment in use, so a suite built later reuses it."""
 
     __slots__ = ("n", "m", "cs", "topo", "rank", "lv", "is_mem_topo",
-                 "O_mem", "O_alu", "Om_rel", "Oa_rel", "prov", "cls_topo",
-                 "prov_ok", "t_chk", "need_chk", "_dev")
+                 "O_mem", "O_alu", "Om_rel", "Oa_rel", "level_aug", "prov",
+                 "cls_topo", "prov_ok", "t_chk", "need_chk", "_dev")
 
     def __init__(self, g: EDag, topo: np.ndarray, O_mem: np.ndarray,
                  O_alu: np.ndarray, m: int, cs: int,
+                 level: Optional[np.ndarray] = None,
                  prov: Optional[np.ndarray] = None,
                  classes: Optional[np.ndarray] = None):
         n = g.n_vertices
@@ -411,8 +428,13 @@ class _ReplayPlan:
             qpred = _slot_qpred(rank, O_mem, O_alu, m, cs, n)
         src_r, dst_r = rank[g.src], rank[g.dst]
         qdst = np.nonzero(qpred < n)[0].astype(np.int32)
-        level = _bk.levelize(np.concatenate([src_r, qpred[qdst]]),
-                             np.concatenate([dst_r, qdst]), n)
+        asrc = np.concatenate([src_r, qpred[qdst]])
+        adst = np.concatenate([dst_r, qdst])
+        if level is not None and not _aug_level_valid(level, asrc, adst, n):
+            level = None
+        if level is None:
+            level = _bk.levelize(asrc, adst, n)
+        self.level_aug = level
         lv = _bk.build_level_partition(src_r, dst_r, level, n)
         _attach_queue_partition(lv, dst_r, qpred, level)
         self.lv = lv

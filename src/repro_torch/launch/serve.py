@@ -78,7 +78,7 @@ def run(cfg: ModelConfig, requests: int = 8, slots: int = 4,
 
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", default="rwkv6-7b", choices=sorted(ARCHS))
+    ap.add_argument("--arch", default="qwen3-0.6b", choices=sorted(ARCHS))
     ap.add_argument("--reduced", action=argparse.BooleanOptionalAction,
                     default=True,
                     help="serve the smoke-size config (--no-reduced: the "

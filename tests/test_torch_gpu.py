@@ -1,7 +1,8 @@
 """Tests of the port that need the card: the CUDA kernels (level step,
-WKV6, SSD, flash attention) against their plain versions, the engine on
-the card against the engine on the host, and the serving path on the
-card.
+WKV6, SSD, flash attention) against their plain versions (the level
+kernel also on union and class-mode replay plans), the engine, the union
+suite grids and the placement search on the card against the host, and
+the serving path on the card.
 
 Marked ``gpu``; each test asks a fixture whether torch sees a CUDA device
 and skips when it does not.  Run on a machine with the card:
@@ -451,3 +452,102 @@ def test_bf16_kernel_vs_both_plain_versions(card, B, T, S, H, KV, hd,
     err = (o.double() - rounded.double()).abs()
     assert (err <= rtol * rounded.double().abs() +
             atol * rounded.double().abs().max()).all()
+
+
+def _suite(names=("gemm", "atax", "lu"), N=8, classes=False):
+    from repro_torch.core import EDagSuite, object_class_map
+    from repro_torch.core import objects_from_edag
+    members = [polybench.trace_kernel(nm, N) for nm in names]
+    if classes:
+        for g in members:
+            g.set_mem_classes(object_class_map(g, objects_from_edag(g)))
+    return EDagSuite(members, names=list(names))
+
+
+#: ten PAPER_15 members over six pairs: blocks enough side by side that
+#: the union's plan holds wide-level grids between its narrow segments
+WIDE_SUITE = tuple(nm for nm in polybench.PAPER_15
+                   if nm not in ("2mm", "3mm", "doitgen", "gemm", "symm"))
+WIDE_PAIRS = [(2, 0), (2, 8), (4, 0), (4, 8), (8, 0), (8, 8)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("classes", [False, True])
+@pytest.mark.parametrize("wide", [False, True])
+def test_kernel_bitwise_on_union_and_class_plans(card, dtype, classes, wide):
+    """K1 on a union replay plan (``seg_ptr`` blocks interleaving per
+    level) and on a class-mode union plan (provenance slot chains), the
+    wide ones with wide-level grids in their plans: equal to the plain
+    version bit for bit, one grid per plan row."""
+    from repro_torch.core import suite as SU
+    from repro_torch.kernels.level_step import narrow_width
+    suite = _suite(WIDE_SUITE, classes=classes) if wide else \
+        _suite(classes=classes)
+    pairs = WIDE_PAIRS if wide else [(2, 0), (4, 8)]
+    width = max(g.n_mem_classes() for g in suite.members)
+    a0 = np.full(width, 200.0) if classes else 50.0
+    plan = SU._build_suite_plan(suite, pairs, 1.0, a0, False,
+                                n_classes=width if classes else None)
+    lv = plan.lv
+    n_blocks = len(pairs) * len(suite.members)
+    assert lv.seg_ptr is not None and len(lv.seg_ptr) == n_blocks + 1
+    assert (lv.level_plan(narrow_width(7))[:, 2] != 0).any() == wide
+    rng = np.random.default_rng(3)
+    base = torch.from_numpy(rng.integers(1, 400, (lv.n + 1, 7)) / 4.0
+                            ).to(card, dtype)
+    base[-1] = 0
+    Fk, Fp = base.clone(), base.clone()
+    Rk, Rp = torch.zeros_like(base), torch.zeros_like(base)
+    n0 = level_step.launches
+    level_step(lv, Fk, clamp=False, R_out=Rk)
+    assert level_step.launches - n0 == len(lv.level_plan(narrow_width(7)))
+    level_step_plain(lv, Fp, clamp=False, R_out=Rp)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(Fk), _bits(Fp))
+    assert torch.equal(_bits(Rk), _bits(Rp))
+
+
+@pytest.mark.parametrize("classes", [False, True])
+def test_suite_grid_on_card_equals_member_grids(card, classes):
+    from repro_torch.core import suite as SU
+    from repro_torch.core import suite_sweep_grid, sweep_grid
+    suite = _suite(classes=classes)
+    if classes:
+        width = max(g.n_mem_classes() for g in suite.members)
+        alphas = np.full((3, width), 200.0)
+        alphas[1] = 1.0
+        alphas[2, 0] = 1.0
+    else:
+        alphas = np.linspace(50.0, 300.0, 6)
+    B.reset_stats()
+    SU.stats.reset()
+    got = suite_sweep_grid(suite, alphas, ms=(2, 4), compute_slots=(0, 8))
+    assert B.stats["cuda_chunks"] > 0 and B.stats["cpu_chunks"] == 0
+    fallbacks = SU.stats["fallback_points"]
+    for k, g in enumerate(suite.members):
+        assert np.array_equal(got[k], sweep_grid(g, alphas, ms=(2, 4),
+                                                 compute_slots=(0, 8)))
+    SU.stats.reset()
+    host = suite_sweep_grid(_suite(classes=classes), alphas, ms=(2, 4),
+                            compute_slots=(0, 8), backend="cpu")
+    assert np.array_equal(got, host)
+    # the card's union replays certified what the host's did
+    assert SU.stats["fallback_points"] == fallbacks
+
+
+def test_search_placement_on_card_equals_host(card):
+    from repro_torch.core import objects_from_edag, search_placement
+    g = polybench.trace_kernel("atax", 8)
+    budget = sum(o.nbytes for o in objects_from_edag(g)) // 2
+    reps = {}
+    for backend in ("cuda", "cpu"):
+        B.reset_stats()
+        reps[backend] = [search_placement(g, 1.0, 200.0, budget, m=4,
+                                          method=method, backend=backend)
+                         for method in ("oracle", "greedy")]
+        assert B.stats[f"{backend}_chunks"] > 0
+    for a, b in zip(reps["cuda"], reps["cpu"]):
+        assert (a.local, a.makespan, a.all_local, a.all_remote,
+                a.marginal) == (b.local, b.makespan, b.all_local,
+                                b.all_remote, b.marginal)
+        assert np.array_equal(a.curve, b.curve)

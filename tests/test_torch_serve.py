@@ -188,6 +188,19 @@ def test_launcher_cli_on_the_host(capsys):
     assert launch.parser().parse_args([]).reduced is True
 
 
+def test_launcher_default_arch_is_the_references():
+    """``python -m repro_torch.launch.serve`` with no ``--arch`` serves what
+    ``python -m repro.launch.serve`` serves."""
+    import inspect
+
+    from repro.launch import serve as ref_launch
+    src = inspect.getsource(ref_launch.main)
+    ref_default = src.split('"--arch", default="', 1)[1].split('"', 1)[0]
+    assert ref_default == "qwen3-0.6b"
+    args = launch.parser().parse_args([])
+    assert args.arch == ref_default
+
+
 def test_launcher_run_reports_the_engine():
     res = launch.run(ARCHS["rwkv6-7b"].reduced(), requests=4, slots=2,
                      max_seq=32, max_tokens=4, prompt_len=8, device="cpu",
