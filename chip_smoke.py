@@ -21,8 +21,10 @@ Phases, each timed; any failure ends the run with a non-zero exit:
              timings: the
              kernels (µs per dependent level, grids per call), the plain
              version and a per-level ``scatter_reduce`` yardstick on the
-             main path's shapes, the union plan against its blocks
-             replayed member by member (grids, µs per level), and HPCG's
+             main path's shapes, the union plans against their blocks
+             replayed member by member (grids, µs per level) and against
+             the plain version and the yardstick on the same inputs, and
+             HPCG's
              uncached DAG pass (1.79M
              vertices, 49,304 levels, k=1).  Then the WKV6 and SSD kernels against
              their plain versions (chunked at 256, blocked as the kernels
@@ -88,7 +90,29 @@ Phases, each timed; any failure ends the run with a non-zero exit:
              versions' (the recurrent states to the sequential form);
              prefill ms, decode ms per step, tok/s, peak memory and the
              profile's busy and idle share.
-8. report  — the card line, the ``{"kernels": [...]}`` line, and last the
+8. persist — the persistent schedule cache and the trace store at
+             ``benchmarks/perf_core.py::bench_schedule_cache``'s and
+             ``perf_scale.py``'s sizes, against
+             ``src/repro_torch/configs/service_expected.json`` (the JAX
+             package's results): PolyBench gemm at N=20, 26 alphas in
+             [50, 300], ms (2, 4, 8), ALU slots (0, 8), in two cold and two
+             warm child processes sharing a cache directory (warm children
+             record nothing); HPCG CG at n=13, 7 iterations (1.09M
+             vertices) under a 64 MiB replay budget: sweep, save the
+             trace, drop it, load it memory-mapped and sweep again from
+             the format-4 entry (no recording); and the legacy list build
+             of n=8, 3 iterations, equal to the streaming build.  Every
+             grid the JAX package's.
+9. service — ``benchmarks/perf_service.py``'s full stream (16 waves of 6
+             requests over atax, bicg, mvt and gesummv at N=12) through
+             the port's ``AnalysisService``: the clean stream (every
+             request on rung 0, ``("cuda", "float32")``, K1 on the card
+             only), the transient stream, the poisoned wave, a ``kernel``
+             fault (one rung down, on ``("cuda", "float64")``), a
+             ``cache`` fault (quarantined and re-recorded) and one wave
+             through the admission thread; every outcome and report the
+             JAX package's; requests/s, p50/p99 ms and a profiled wave.
+10. report — the card line, the ``{"kernels": [...]}`` line, and last the
              ``{"ok": true, "device": {...}}`` line.
 
 Usage: python3 chip_smoke.py   (from the root of a checkout, one card)
@@ -97,8 +121,10 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1057,10 +1083,11 @@ def union_plans(N: int = 20):
 def union_vs_members(suite, union, pairs, k: int, reps: int = 10) -> dict:
     """K1 on a union replay plan against the same blocks replayed one
     member plan at a time (float32, ready times, ``k`` columns): ms per
-    call, grids, levels and µs per dependent level of each, and the
-    union's bound."""
+    call, grids, levels and µs per dependent level of each, the union's
+    bound, and the union's plain version and ``scatter_reduce`` yardstick
+    (``library_version``) on the same inputs."""
     import torch
-    from repro_torch.kernels.level_step import level_step
+    from repro_torch.kernels.level_step import level_step, level_step_plain
 
     def timed(lv, seed):
         bases = [base_matrix(lv, k, seed + i, torch.float32, True)
@@ -1075,9 +1102,24 @@ def union_vs_members(suite, union, pairs, k: int, reps: int = 10) -> dict:
 
     ms, grids, levels = timed(union.lv, 7)
     bound, bound_by = bound_ms(union.lv, k, 4, True)
+    # the plain version and the scatter_reduce yardstick on the same
+    # inputs: one warm-up call and one timed call each
+    base = [base_matrix(union.lv, k, 7, torch.float32, True)]
+    plain = time_ms(lambda F: level_step_plain(
+        union.lv, F, clamp=False, R_out=torch.zeros_like(F)), base,
+        warmup=1)
+    lib = time_ms(lambda F: library_version(
+        union.lv, F, False, torch.zeros_like(F)), base, warmup=1)
+    Fk, Fl = base[0].clone(), base[0].clone()
+    level_step(union.lv, Fk, clamp=False)
+    library_version(union.lv, Fl, False)
+    torch.cuda.synchronize()
+    if not bits_equal(Fk, Fl):
+        raise SystemExit("scatter_reduce yardstick disagrees on the union")
     out = dict(union=dict(ms=ms, launches_per_call=grids,
                           levels_per_call=levels,
                           us_per_level=1e3 * ms / max(levels, 1),
+                          plain_ms=plain, library_ms=lib,
                           bound_ms=bound, bound_by=bound_by, n=union.lv.n,
                           levels=union.lv.n_levels, k=k))
     ms = grids = levels = 0.0
@@ -1312,6 +1354,412 @@ def run_suite(expected: dict) -> dict:
     out["placement"] = dict(place.row(), traces=len(rows),
                             oracle_traces=sum("oracle" in r["methods"]
                                               for r in rows))
+    return out
+
+
+# --------------------------------------------- persist and service phases
+
+class env_vars:
+    """Set environment variables inside the block, restore them after."""
+
+    def __init__(self, **kw: str) -> None:
+        self.kw = kw
+
+    def __enter__(self):
+        self.old = {k: os.environ.get(k) for k in self.kw}
+        os.environ.update(self.kw)
+        return self
+
+    def __exit__(self, *exc):
+        for k, v in self.old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        return False
+
+
+def scratch_dir(tag: str) -> Path:
+    """A fresh directory under the checkout's ``build/`` (git ignores it)
+    for this run's schedule caches, trace stores and results."""
+    (ROOT / "build").mkdir(exist_ok=True)
+    return Path(tempfile.mkdtemp(prefix=f"{tag}-", dir=ROOT / "build"))
+
+
+def persist_child(cfg_json: str) -> int:
+    """One process of the cross-process cache check: trace PolyBench's
+    kernel, run ``sweep_grid`` on the card against the cache directory in
+    ``$EDAN_SCHEDULE_CACHE``, print one ``PERSIST_CHILD`` JSON line (the
+    grid, the cache's counters, K1's counts, seconds)."""
+    t_start = time.perf_counter()
+    sys.path.insert(0, str(SRC))
+    import numpy as np
+    import torch
+    from repro_torch.apps import polybench
+    from repro_torch.core import backend as B
+    from repro_torch.core import schedule_cache as sc
+    from repro_torch.core import sweep_grid
+    from repro_torch.kernels.level_step import level_step
+    cfg = json.loads(cfg_json)
+    level_step.build()
+    t0 = time.perf_counter()
+    g = polybench.trace_kernel(cfg["kernel"], cfg["N"])
+    g._finalize()
+    g._sim_lists()
+    trace_s = time.perf_counter() - t0
+    sc.reset_stats()
+    B.reset_stats()
+    level_step.reset_counts()
+    t0 = time.perf_counter()
+    grid = sweep_grid(g, np.asarray(cfg["alphas"]), ms=cfg["ms"],
+                      compute_slots=cfg["compute_slots"])
+    torch.cuda.synchronize()
+    grid_s = time.perf_counter() - t0
+    print("PERSIST_CHILD " + json.dumps(dict(
+        grid=grid.tolist(), digest=g.trace_digest(),
+        n_vertices=g.n_vertices, trace_s=trace_s, grid_s=grid_s,
+        process_s=time.perf_counter() - t_start,
+        cache=sc.stats.snapshot(), replay=B.stats.snapshot(),
+        k1=dict(launches=level_step.launches, levels=level_step.levels,
+                calls=level_step.calls))), flush=True)
+    return 0
+
+
+def run_persist_children(cfg: dict, cache: Path) -> dict:
+    """``perf_core.py``'s cross-process protocol: two cold children (the
+    first seeds ``cache/shared``, the second records into a fresh
+    directory) and two warm children on ``cache/shared``, one after the
+    other.  Cold children must record, warm ones record nothing and spend
+    no recording seconds, and every grid must equal the fixture's."""
+    runs = {}
+    want = {k: cfg[k] for k in ("kernel", "N", "alphas", "ms",
+                                "compute_slots")}
+    for label, d in (("cold0", "shared"), ("cold1", "cold1"),
+                     ("warm0", "shared"), ("warm1", "shared")):
+        env = dict(os.environ, EDAN_SCHEDULE_CACHE=str(cache / d),
+                   EDAN_SCHEDULE_CACHE_MIN="0",
+                   EDAN_SCHEDULE_CACHE_MAX=str(10 ** 6),
+                   EDAN_TORCH_BACKEND="cuda")
+        t0 = time.perf_counter()
+        p = subprocess.run(
+            [sys.executable, "-c", "import sys, chip_smoke; "
+             f"sys.exit(chip_smoke.persist_child({json.dumps(want)!r}))"],
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        line = next((ln for ln in p.stdout.splitlines()
+                     if ln.startswith("PERSIST_CHILD ")), None)
+        if p.returncode != 0 or line is None:
+            sys.stderr.write(p.stdout[-4000:] + p.stderr[-4000:])
+            raise SystemExit(f"persist child {label} exited "
+                             f"{p.returncode}")
+        got = json.loads(line[len("PERSIST_CHILD "):])
+        check_equal(got.pop("grid"), cfg["grid"], f"gemm grid ({label})")
+        if got["digest"] != cfg["digest"]:
+            raise SystemExit(f"gemm {label}: digest differs from the JAX "
+                             f"package's")
+        st, rp = got["cache"], got["replay"]
+        if rp["cuda_chunks"] <= 0 or rp["cpu_chunks"] != 0 or \
+                got["k1"]["launches"] <= 0:
+            raise SystemExit(f"gemm {label} did not replay on the card: "
+                             f"{rp} {got['k1']}")
+        if label.startswith("cold") and not (st["record_runs"] > 0 and
+                                             st["stores"] > 0):
+            raise SystemExit(f"gemm {label} recorded nothing: {st}")
+        if label.startswith("warm") and not (
+                st["record_runs"] == 0 and st["record_seconds"] == 0 and
+                st["disk_hits"] == len(cfg["ms"]) *
+                len(cfg["compute_slots"])):
+            raise SystemExit(f"gemm {label} did not warm from the disk: "
+                             f"{st}")
+        runs[label] = dict(got, wall_s=wall)
+    return runs
+
+
+def run_persist(expected: dict) -> dict:
+    """Phase "persist": (1) the gemm children (``run_persist_children``);
+    (2) HPCG CG at ``perf_scale.py``'s "1m" tier under a 64 MiB replay
+    budget: trace, ``sweep_grid`` on the card (recording, stored as a
+    format-4 entry), ``save_edag``, drop the graph, ``load_edag`` (memory
+    maps, digest-verified), ``sweep_grid`` again from the mapped trace and
+    the mapped entry; both grids the JAX package's; (3) the "100k" tier
+    through the legacy list build: its digest, edges, levels and sweep
+    row the streaming build's and the JAX package's."""
+    cache = scratch_dir("persist")
+    try:
+        return persist_scenarios(expected, cache)
+    finally:
+        shutil.rmtree(cache, ignore_errors=True)
+
+
+def persist_scenarios(expected: dict, cache: Path) -> dict:
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.apps import hpcg
+    from repro_torch.core import backend as B
+    from repro_torch.core import load_edag, save_edag, sweep_grid
+    from repro_torch.core import schedule_cache as sc
+    out = dict(gemm=run_persist_children(expected["gemm"], cache))
+    cfg = expected["hpcg"]
+    alphas = np.asarray(cfg["alphas"])
+    kw = dict(ms=cfg["ms"], compute_slots=cfg["compute_slots"])
+    with env_vars(EDAN_SCHEDULE_CACHE=str(cache / "hpcg"),
+                  EDAN_REPLAY_MEM_BUDGET=str(cfg["mem_budget"])):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        g = hpcg.trace_cg(n=cfg["n"], iters=cfg["iters"])[0]
+        g._finalize()
+        trace_s = time.perf_counter() - t0
+        if (g.n_vertices, g.n_edges, g.n_levels, g.trace_digest()) != (
+                cfg["n_vertices"], cfg["n_edges"], cfg["n_levels"],
+                cfg["digest"]):
+            raise SystemExit("hpcg: the trace differs from the JAX "
+                             "package's")
+        sc.reset_stats()
+        B.reset_stats()
+        with k1_counts() as cold:
+            grid = sweep_grid(g, alphas, **kw)
+        check_equal(grid, cfg["grid"], "hpcg grid (cold)")
+        cold_st = sc.stats.snapshot()
+        entries = sorted(p.name for p in (cache / "hpcg").glob("*.d"))
+        if cold_st["record_runs"] < 1 or not entries:
+            raise SystemExit(f"hpcg: no format-4 entry stored: {cold_st}")
+        t0 = time.perf_counter()
+        path = save_edag(g, cache / "trace")
+        save_s = time.perf_counter() - t0
+        del g
+        gc.collect()
+        t0 = time.perf_counter()
+        g2 = load_edag(path)
+        load_s = time.perf_counter() - t0
+        sc.reset_stats()
+        with k1_counts() as warm:
+            grid2 = sweep_grid(g2, alphas, **kw)
+        check_equal(grid2, cfg["grid"], "hpcg grid (mapped reload)")
+        warm_st = sc.stats.snapshot()
+        if warm_st["disk_hits"] < 1 or warm_st["record_runs"] != 0:
+            raise SystemExit(f"hpcg: the reload re-recorded: {warm_st}")
+        if B.stats["cuda_chunks"] <= 0 or B.stats["cpu_chunks"] != 0:
+            raise SystemExit(f"hpcg replay chunks off the card: "
+                             f"{dict(B.stats)}")
+        chunks = B.stats["chunks"]
+        del g2
+        peak = torch.cuda.max_memory_allocated()
+    lc = expected["legacy"]
+    t0 = time.perf_counter()
+    gs = hpcg.trace_cg(n=lc["n"], iters=lc["iters"])[0]
+    with env_vars(EDAN_LEGACY_BUILD="1"):
+        gl = hpcg.trace_cg(n=lc["n"], iters=lc["iters"])[0]
+    if not gl._legacy or gs._legacy:
+        raise SystemExit("the legacy build knob was not honoured")
+    for gx in (gs, gl):
+        gx._finalize()
+        if (gx.n_vertices, gx.n_edges, gx.n_levels, gx.trace_digest()) != (
+                lc["n_vertices"], lc["n_edges"], lc["n_levels"],
+                lc["digest"]):
+            raise SystemExit("100k tier: a build differs from the JAX "
+                             "package's trace")
+    if not (np.array_equal(gs.src, gl.src) and
+            np.array_equal(gs.dst, gl.dst) and
+            np.array_equal(gs.level, gl.level)):
+        raise SystemExit("100k tier: legacy and streaming builds differ")
+    with env_vars(EDAN_SCHEDULE_CACHE="off"):
+        for label, gx in (("streaming", gs), ("legacy", gl)):
+            check_equal(sweep_grid(gx, alphas, **kw), lc["grid"],
+                        f"100k tier sweep ({label} build)")
+    legacy_s = time.perf_counter() - t0
+    out["hpcg"] = dict(
+        n_vertices=cfg["n_vertices"], n_levels=cfg["n_levels"],
+        trace_s=trace_s, cold=dict(cold.row(), cache=cold_st),
+        save_s=save_s, load_s=load_s,
+        warm=dict(warm.row(), cache=warm_st), entries=entries,
+        replay_chunks=chunks, peak_device_gib=peak / 2 ** 30)
+    out["legacy_s"] = legacy_s
+    return out
+
+
+def percentiles_ms(lat_s) -> tuple:
+    import numpy as np
+    lat = np.asarray(sorted(lat_s)) * 1e3
+    return float(np.percentile(lat, 50)), float(np.percentile(lat, 99))
+
+
+def service_waves(c: dict, n_waves: int, wave: int) -> list:
+    """``perf_service.py``'s stream: waves of compatible requests, the
+    kernels in turn."""
+    from repro_torch.serve import AnalysisRequest
+    names = c["kernels"]
+    return [[AnalysisRequest(kernel=names[(w * wave + k) % len(names)],
+                             n=c["N"], alphas=tuple(c["alphas"]),
+                             ms=tuple(c["ms"]),
+                             compute_slots=tuple(c["compute_slots"]),
+                             deadline_s=c["deadline_s"])
+             for k in range(wave)] for w in range(n_waves)]
+
+
+def check_results(results, want_outcomes, reports, label: str) -> None:
+    """Each result's outcome and (when ok) report equal to the JAX
+    package's run of the same stream."""
+    from service_expected import outcome    # as the fixture was written
+    got = [outcome(r) for r in results]
+    diff = same(got, want_outcomes, label)
+    if diff:
+        raise SystemExit(f"{label}: outcomes differ from the JAX "
+                         f"package's:\n" + "\n".join(diff[:20]))
+    for r in results:
+        if r.ok:
+            check_equal(r.report, reports[r.report["name"]],
+                        f"{label} report {r.rid}")
+
+
+def drive_stream(c: dict, spec: str = "") -> tuple:
+    """The stream through one service, a wave per ``process`` call;
+    returns (results, the scenario's row)."""
+    from repro_torch.serve import AnalysisService, faults
+    faults.reset()
+    for s in faults.parse_spec(spec):
+        faults.install(s.stage, s.kind, count=s.count, every=s.every,
+                       delay=s.delay, rid=s.rid, min_batch=s.min_batch)
+    service = AnalysisService(start=False, backoff_s=c["backoff_s"])
+    results, lat = [], []
+    t0 = time.perf_counter()
+    for wave in service_waves(c, c["n_waves"], c["wave"]):
+        tw = time.perf_counter()
+        out = service.process(wave)
+        lat.extend([(time.perf_counter() - tw) / len(out)] * len(out))
+        results.extend(out)
+    seconds = time.perf_counter() - t0
+    fired = dict(faults.fire_log)
+    faults.reset()
+    p50, p99 = percentiles_ms(lat)
+    return results, dict(requests=len(results), seconds=seconds,
+                         rps=len(results) / seconds, p50_ms=p50, p99_ms=p99,
+                         success_rate=sum(r.ok for r in results) /
+                         len(results),
+                         retries=sum(r.retries for r in results),
+                         fired={f"{k[0]}:{k[1]}": v
+                                for k, v in fired.items()})
+
+
+def run_service(expected: dict) -> dict:
+    work = scratch_dir("service")
+    try:
+        with env_vars(EDAN_SCHEDULE_CACHE=str(work / "sched")):
+            return service_scenarios(expected, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def service_scenarios(expected: dict, work: Path) -> dict:
+    """Phase "service": ``perf_service.py``'s streams through the port's
+    ``AnalysisService`` on the card, against the JAX package's run of the
+    same streams (``configs/service_expected.json``): the clean stream
+    (every request on rung 0, ``("cuda", "float32")``, K1 on the card
+    only), the transient stream, the poisoned wave, a ``kernel`` fault
+    (the request ends one rung down on ``("cuda", "float64")``, stored as
+    JSON), a ``cache`` fault (the corrupted entry quarantined and
+    re-recorded), one wave through the admission thread, and one profiled
+    clean wave."""
+    from repro_torch.core import backend as B
+    from repro_torch.core import schedule_cache as sc
+    from repro_torch.core.plan import ExecPolicy
+    from repro_torch.serve import AnalysisService, faults
+    c, reports = expected["config"], expected["reports"]
+    rung0 = ExecPolicy.resolve().ladder()[0]
+    if (rung0.backend, rung0.replay_dtype) != ("cuda", "float32"):
+        raise SystemExit(f"the default policy's first rung is {rung0}")
+    out: dict = {}
+
+    B.reset_stats()
+    with k1_counts() as k1:
+        clean, row = drive_stream(c)
+    check_results(clean, expected["clean"], reports, "clean stream")
+    off_rung0 = [r.rid for r in clean if
+                 (r.policy["backend"], r.policy["replay_dtype"]) !=
+                 ("cuda", "float32") or r.policy["demotions"] != 0]
+    if off_rung0:
+        raise SystemExit(f"clean requests {off_rung0} left rung 0")
+    if B.stats["cuda_chunks"] <= 0 or B.stats["cpu_chunks"] != 0:
+        raise SystemExit(f"clean stream replays off the card: "
+                         f"{dict(B.stats)}")
+    out["clean"] = dict(row, k1=k1.row(), replay=B.stats.snapshot())
+
+    faulty, row = drive_stream(c, c["transient_spec"])
+    check_results(faulty, expected["faulty"], reports, "transient stream")
+    if row["success_rate"] != 1.0:
+        raise SystemExit(f"transient stream: success {row['success_rate']}")
+    out["transient"] = row
+
+    faults.reset()
+    faults.install("replay", "backend", min_batch=2)
+    faults.install("replay", "backend", rid=1)
+    pois = AnalysisService(start=False, backoff_s=0.0).process(
+        service_waves(c, 1, c["poisoned_wave"])[0])
+    faults.reset()
+    check_results(pois, expected["poisoned"], reports, "poisoned wave")
+    healthy = [r for r in pois if r.rid != 1]
+    out["poisoned"] = dict(
+        healthy_success_rate=sum(r.ok for r in healthy) / len(healthy),
+        poisoned_success_rate=float(pois[1].ok),
+        poisoned_error=pois[1].error["code"])
+    if out["poisoned"]["healthy_success_rate"] != 1.0 or pois[1].ok:
+        raise SystemExit(f"poisoned wave: {out['poisoned']}")
+
+    kernel = c["cache_fault_kernel"]
+    (one,) = service_waves(dict(c, kernels=[kernel]), 1, 1)[0]
+    faults.install("kernel", "backend", count=1)
+    try:
+        (res,) = AnalysisService(start=False, backoff_s=0.0,
+                                 results_dir=work / "results").process(
+            [one])
+        fired = faults.fire_log.get(("kernel", "backend"), 0)
+    finally:
+        faults.reset()
+    if not res.ok or fired != 1 or res.policy != {
+            "backend": "cuda", "replay_dtype": "float64",
+            "demotions": 1} or res.stored is not True:
+        raise SystemExit(f"kernel fault: ok={res.ok} fired={fired} "
+                         f"policy={res.policy} stored={res.stored} "
+                         f"error={res.error}")
+    check_equal(res.report, reports[kernel], "kernel-fault report")
+    doc = json.loads((work / "results" / f"result_{res.rid}.json")
+                     .read_text())
+    check_equal(doc["report"], reports[kernel], "stored kernel-fault report")
+    out["kernel_fault"] = dict(policy=res.policy, retries=res.retries,
+                               stored=res.stored)
+
+    cf = expected["cache_fault"]
+    with env_vars(EDAN_SCHEDULE_CACHE_MIN="0"):
+        sc.clear()
+        AnalysisService(start=False, backoff_s=0.0).process(
+            service_waves(dict(c, kernels=[kernel]), 1, 1)[0])
+        sc.reset_stats()
+        faults.install("cache-load", "cache", count=1)
+        (res,) = AnalysisService(start=False, backoff_s=0.0).process(
+            service_waves(dict(c, kernels=[kernel]), 1, 1)[0])
+        faults.reset()
+        st = {k: v for k, v in sc.stats.items() if k != "record_seconds"}
+    bad = sorted(p.name for p in (work / "sched").glob("*.bad"))
+    if st != cf["stats"] or not bad:
+        raise SystemExit(f"cache fault: stats {st} (the JAX package's "
+                         f"{cf['stats']}), quarantined {bad}")
+    check_results([res], [{k: cf[k] for k in ("ok", "retries", "demotions",
+                                               "batch", "error")}],
+                  reports, "cache-fault request")
+    out["cache_fault"] = dict(stats=st, quarantined=bad)
+
+    wave = service_waves(c, 1, c["wave"])[0]
+    service = AnalysisService(batch_window_s=0.05, backoff_s=0.0)
+    try:
+        threaded = service.run(wave, timeout=300.0)
+    finally:
+        service.close()
+    check_results(threaded, expected["clean"][:c["wave"]], reports,
+                  "admission thread")
+    service = AnalysisService(start=False, backoff_s=0.0)
+    prof = profile_call(lambda: service.process(
+        service_waves(c, 1, c["wave"])[0]))
+    out["profile_clean_wave"] = prof
     return out
 
 
@@ -1720,7 +2168,15 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     sys.path.insert(0, str(ROOT / "tools"))     # the fixture writers
     os.environ["EDAN_TORCH_BACKEND"] = "cuda"
-    for knob in ("EDAN_X64", "EDAN_REPLAY_DTYPE", "EDAN_REPLAY_MEM_BUDGET"):
+    # phases "persist" and "service" point the schedule cache at their own
+    # directories; the others keep it off, so their results and counters
+    # depend on nothing a directory holds
+    os.environ["EDAN_SCHEDULE_CACHE"] = "off"
+    for knob in ("EDAN_X64", "EDAN_REPLAY_DTYPE", "EDAN_REPLAY_MEM_BUDGET",
+                 "EDAN_SCHEDULE_CACHE_MIN", "EDAN_SCHEDULE_CACHE_MAX",
+                 "EDAN_SCHEDULE_CACHE_MMAP_MIN", "EDAN_LEGACY_BUILD",
+                 "EDAN_TRACE_STORE", "EDAN_FAULTS", "EDAN_DEADLINE_S",
+                 "EDAN_MAX_RETRIES"):
         os.environ.pop(knob, None)
     import numpy as np  # noqa: F401
     from repro_torch.apps import polybench
@@ -1852,6 +2308,27 @@ def main() -> int:
             if n <= 0:
                 raise SystemExit(f"the serving path never launched {k}")
 
+    service_expected = json.loads((SRC / "repro_torch" / "configs" /
+                                   "service_expected.json").read_text())
+    with phase("persist"):
+        reset_counts()
+        persist_res = run_persist(service_expected["persist"])
+        persist_launches = read_counts()["level_step"] + sum(
+            r["k1"]["launches"] for r in persist_res["gemm"].values())
+        if persist_launches <= 0:
+            raise SystemExit("the persist path never launched level_step")
+        print(f"  persist: {json.dumps(persist_res)}", flush=True)
+        print(f"  persist launches: {persist_launches}", flush=True)
+
+    with phase("service"):
+        reset_counts()
+        service_res = run_service(service_expected["service"])
+        service_launches = read_counts()["level_step"]
+        if service_launches <= 0:
+            raise SystemExit("the service path never launched level_step")
+        print(f"  service: {json.dumps(service_res)}", flush=True)
+        print(f"  service launches: {service_launches}", flush=True)
+
     with phase("report"):
         m = meas["gemm_replay_f32"]
         kern = dict(
@@ -1873,6 +2350,13 @@ def main() -> int:
                        float64=B.stats.snapshot()),
             measurements=meas, sweep_profile=prof, kernel_cases=n_cases,
             launches_suite=suite_launches["level_step"],
+            launches_persist=persist_launches,
+            launches_service=service_launches,
+            plain_ms_union=union_meas["narrow"]["union"]["plain_ms"],
+            library_ms_union=union_meas["narrow"]["union"]["library_ms"],
+            plain_ms_union_wide=union_meas["wide"]["union"]["plain_ms"],
+            library_ms_union_wide=union_meas["wide"]["union"][
+                "library_ms"],
             us_per_level_union=union_meas["narrow"]["union"]["us_per_level"],
             us_per_level_union_wide=union_meas["wide"]["union"][
                 "us_per_level"],

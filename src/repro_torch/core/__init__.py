@@ -1,6 +1,7 @@
 """EDAN core: eDAG construction, the level kernel's dispatch, the cost
-model, the metrics, the batched §4 simulator, union suites, object
-sensitivity and the placement search."""
+model, the metrics, the batched §4 simulator, the persistent schedule
+cache and trace store, union suites, object sensitivity and the placement
+search."""
 from .graph import EDag, IndexOverflowError, MemLayering, concat_edags
 from .plan import ExecPolicy, SweepSpec, replay_mem_budget
 from .cache import NoCache, SetAssociativeCache, make_cache
@@ -21,6 +22,9 @@ from .placement import (PlacementObject, PlacementReport,
                         placement_rows, search_placement)
 from .suite import (EDagSuite, suite_latency_sweep, suite_sweep_grid,
                     suite_t_inf_sweep)
+from . import schedule_cache
+from .trace_store import (save_edag, load_edag, put_trace, get_trace,
+                          trace_store_dir)
 from .sensitivity import (AxisSensitivity, axis_latency_sweep,
                           axis_latency_grid, object_sensitivity,
                           suite_axis_latency_grid)
@@ -28,6 +32,8 @@ from .sensitivity import (AxisSensitivity, axis_latency_sweep,
 __all__ = [
     "EDag", "IndexOverflowError", "MemLayering", "ExecPolicy", "SweepSpec",
     "replay_mem_budget", "NoCache", "SetAssociativeCache", "make_cache",
+    "save_edag", "load_edag", "put_trace", "get_trace", "trace_store_dir",
+    "schedule_cache",
     "Tracer", "Value", "build_edag_from_trace", "CostModelParams",
     "memory_cost_bounds", "total_cost_bounds", "layered_upper_bound",
     "non_memory_cost", "analyze", "lambda_abs", "lambda_rel",

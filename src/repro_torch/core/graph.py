@@ -25,7 +25,9 @@ Storage discipline (million-vertex traces):
   on its own and chunks whose dst ranges do not interleave (the tracer's
   natural output — every emitted block's edges target the new block's
   vertex range) are simply concatenated, which equals the global stable
-  sort without argsorting the full edge stream.
+  sort without argsorting the full edge stream.  The list-based build
+  (``EDag(legacy_build=True)`` or ``$EDAN_LEGACY_BUILD=1``) is kept as the
+  bit-identical reference the streaming path is tested against.
 * All index arrays (edges, CSR pointers, levels) are stored as **int32** —
   half the memory and device transfer of int64 at paper scale.  Growth past
   the int32 boundary raises ``IndexOverflowError`` (never a silent
@@ -33,11 +35,13 @@ Storage discipline (million-vertex traces):
   digests are identical across index widths and equal to the reference
   package's on the same trace.
 * ``EDag.from_arrays`` adopts already-finalized (dst-sorted) arrays
-  zero-copy; adopted graphs are immutable.
+  zero-copy — the entry point ``core.trace_store`` memory-maps traces
+  from disk through; adopted graphs are immutable.
 """
 from __future__ import annotations
 
 import hashlib
+import os
 from collections import OrderedDict
 
 import numpy as np
@@ -236,6 +240,11 @@ class _EdgeChunks:
         return src, dst
 
 
+def _legacy_build_default() -> bool:
+    v = os.environ.get("EDAN_LEGACY_BUILD", "").strip().lower()
+    return v in ("1", "true", "yes", "on")
+
+
 @dataclass
 class MemLayering:
     """Result of the §3.3.1 layer decomposition.
@@ -262,15 +271,29 @@ class MemLayering:
 
 
 class EDag:
-    """Append-only execution DAG with topological-order analyses."""
+    """Append-only execution DAG with topological-order analyses.
 
-    def __init__(self) -> None:
-        self._cost = _ChunkedArray(np.float64)
-        self._is_mem = _ChunkedArray(bool)
-        self._nbytes = _ChunkedArray(np.float64)
-        self._label_runs: list = []   # (count, str) tuples | label lists
-        self._labels_cache: Optional[list] = None
-        self._edges = _EdgeChunks()
+    ``legacy_build=True`` (or ``$EDAN_LEGACY_BUILD=1``) selects the
+    Python-list build path, the bit-identical reference of the default
+    streaming path."""
+
+    def __init__(self, *, legacy_build: Optional[bool] = None) -> None:
+        self._legacy = (_legacy_build_default() if legacy_build is None
+                        else bool(legacy_build))
+        if self._legacy:
+            self._cost: list = []
+            self._is_mem: list = []
+            self._nbytes: list = []
+            self._label: list = []
+            self._src: list = []
+            self._dst: list = []
+        else:
+            self._cost = _ChunkedArray(np.float64)
+            self._is_mem = _ChunkedArray(bool)
+            self._nbytes = _ChunkedArray(np.float64)
+            self._label_runs: list = []   # (count, str) tuples | label lists
+            self._labels_cache: Optional[list] = None
+            self._edges = _EdgeChunks()
         self._adopted = False
         self._finalized = False
         self._indptr: Optional[np.ndarray] = None
@@ -285,8 +308,8 @@ class EDag:
     def _mutable(self) -> None:
         if self._adopted:
             raise ValueError(
-                "this EDag adopted finalized arrays (EDag.from_arrays) "
-                "and is immutable")
+                "this EDag adopted finalized arrays (EDag.from_arrays / "
+                "trace_store) and is immutable")
 
     def _push_label(self, label: str, count: int) -> None:
         self._labels_cache = None
@@ -305,7 +328,10 @@ class EDag:
         self._cost.append(float(cost))
         self._is_mem.append(bool(is_mem))
         self._nbytes.append(float(nbytes))
-        self._push_label(label, 1)
+        if self._legacy:
+            self._label.append(label)
+        else:
+            self._push_label(label, 1)
         self._finalized = False
         return vid
 
@@ -332,6 +358,14 @@ class EDag:
         cost_b = np.broadcast_to(np.asarray(cost, dtype=np.float64), (n,))
         mem_b = np.broadcast_to(np.asarray(is_mem, dtype=bool), (n,))
         nb_b = np.broadcast_to(np.asarray(nbytes, dtype=np.float64), (n,))
+        if self._legacy:
+            self._cost.extend(cost_b.tolist())
+            self._is_mem.extend(mem_b.tolist())
+            self._nbytes.extend(nb_b.tolist())
+            self._label.extend([label] * n if isinstance(label, str)
+                               else label)
+            self._finalized = False
+            return np.arange(base, base + n, dtype=np.int64)
         self._cost.extend(cost_b)
         self._is_mem.extend(mem_b)
         self._nbytes.extend(nb_b)
@@ -358,7 +392,11 @@ class EDag:
         if not (0 <= u < v < len(self._cost)):
             raise ValueError(f"edge ({u},{v}) violates topological insertion order")
         _check_index_limit(self.n_edges + 1, "edge")
-        self._edges.append(int(u), int(v))
+        if self._legacy:
+            self._src.append(u)
+            self._dst.append(v)
+        else:
+            self._edges.append(int(u), int(v))
         self._finalized = False
 
     def add_edge_block(self, src, dst) -> None:
@@ -376,17 +414,33 @@ class EDag:
             raise ValueError(
                 f"edge ({src[bad]},{dst[bad]}) violates topological insertion order")
         _check_index_limit(self.n_edges + len(src), "edge")
-        self._edges.extend(src, dst)
+        if self._legacy:
+            self._src.extend(src.tolist())
+            self._dst.extend(dst.tolist())
+        else:
+            self._edges.extend(src, dst)
         self._finalized = False
 
     # --------------------------------------------------------------- finalize
     def _finalize(self) -> None:
         if self._finalized:
             return
-        cost = self._cost.concat()
-        is_mem = self._is_mem.concat()
-        nbytes = self._nbytes.concat()
-        src, dst = self._edges.collect()
+        if self._legacy:
+            cost = np.asarray(self._cost, dtype=np.float64)
+            is_mem = np.asarray(self._is_mem, dtype=bool)
+            nbytes = np.asarray(self._nbytes, dtype=np.float64)
+            src = np.asarray(self._src, dtype=np.int64)
+            dst = np.asarray(self._dst, dtype=np.int64)
+            if len(dst) and np.any(np.diff(dst) < 0):   # keep CSR by dst
+                order = np.argsort(dst, kind="stable")
+                src, dst = src[order], dst[order]
+            src = src.astype(_INDEX_DTYPE)
+            dst = dst.astype(_INDEX_DTYPE)
+        else:
+            cost = self._cost.concat()
+            is_mem = self._is_mem.concat()
+            nbytes = self._nbytes.concat()
+            src, dst = self._edges.collect()
         self._install(cost, is_mem, nbytes, src, dst)
 
     def _install(self, cost, is_mem, nbytes, src, dst,
@@ -467,6 +521,10 @@ class EDag:
         self._level_csr_cache = lv
         self._trace_digest: Optional[str] = None
         self._replay_plans: OrderedDict = OrderedDict()
+        # device copies of the arrays above (``_device_is_mem``, the
+        # scheduler's ``_graph_dev``) describe the previous finalize
+        self._is_mem_dev = None
+        self._sched_dev = None
         self._esrc_lv = lv.esrc
         self._elevel_ptr = lv.elevel_ptr
         self._run_starts = lv.run_starts
@@ -553,13 +611,15 @@ class EDag:
     def n_edges(self) -> int:
         if self._adopted:
             return len(self.src)
-        return len(self._edges)
+        return len(self._src) if self._legacy else len(self._edges)
 
     def labels(self) -> Sequence[str]:
         if self._adopted:
             if self._labels is None:
                 self._labels = [""] * self.n_vertices
             return self._labels
+        if self._legacy:
+            return self._label
         if self._labels_cache is None:
             out: list = []
             for r in self._label_runs:
@@ -877,6 +937,20 @@ class EDag:
         return dict(n_vertices=self.n_vertices, n_edges=self.n_edges,
                     n_mem=int(self.is_mem.sum()),
                     bytes_total=float(self.nbytes.sum()))
+
+    def array_nbytes(self) -> dict:
+        """Bytes of every finalized and derived host array: the graph's
+        CSR footprint, which the service's batch packing charges."""
+        self._finalize()
+        lv = self._level_csr_cache
+        arrs = dict(cost=self.cost, is_mem=self.is_mem, nbytes=self.nbytes,
+                    src=self.src, dst=self.dst, indptr=self._indptr,
+                    succ_dst=self.succ_dst, succ_indptr=self.succ_indptr,
+                    indeg=self.indeg, level=self.level, esrc=lv.esrc,
+                    elevel_ptr=lv.elevel_ptr, run_starts=lv.run_starts,
+                    run_dst=lv.run_dst, run_lens=lv.run_lens,
+                    run_ptr=lv.run_ptr)
+        return {k: int(v.nbytes) for k, v in arrs.items()}
 
 
 def concat_edags(graphs: Sequence[EDag]) -> EDag:

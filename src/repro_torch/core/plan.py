@@ -113,6 +113,37 @@ class ExecPolicy:
         divisor with ``points_chunk``, so grouping and chunking agree."""
         return max(self.mem_budget // max(REPLAY_BYTES_PER_CELL * k, 1), 1)
 
+    # ---------------------------------------------------- degraded modes
+
+    def ladder(self) -> Tuple["ExecPolicy", ...]:
+        """Execution rungs for degraded-mode retries, most capable first:
+        the policy as requested, then float64 on the requested policy's own
+        device (no float32 certificate to fail), then ``("cpu",
+        "float64")`` (no card at all).  Each rung is resolved to its
+        concrete backend and effective replay dtype before equal rungs are
+        dropped, so a ``cpu`` request has one or two rungs and never a
+        device rung.  A knob that does not resolve (a typo, or ``cuda``
+        without a card) is kept as given and raises again at dispatch, on
+        its rung.  Budget and cache policy carry through unchanged."""
+        try:
+            backend = _bk.select_backend(self.backend)
+        except (ValueError, RuntimeError):
+            backend = self.backend
+        try:
+            dtype = ("float64" if backend == "cpu" and not self.replay_dtype
+                     else _bk.replay_dtype_policy(self.replay_dtype))
+        except ValueError:
+            dtype = self.replay_dtype
+        kw = dict(mem_budget=self.mem_budget, use_cache=self.use_cache)
+        rungs = (ExecPolicy(backend, dtype, **kw),
+                 ExecPolicy(backend, "float64", **kw),
+                 ExecPolicy("cpu", "float64", **kw))
+        out: list = []
+        for r in rungs:
+            if r not in out:
+                out.append(r)
+        return tuple(out)
+
 
 @dataclass(frozen=True, eq=False)
 class SweepSpec:

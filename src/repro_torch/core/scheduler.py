@@ -25,9 +25,12 @@ Two engines implement the identical machine model:
   reference engine per point.
 
 Recorded schedules are reused within one call (all alpha points share one
-plan) and within one process (a small per-``EDag`` LRU of ``_ReplayPlan``
-objects).  Every reused schedule goes through the same per-point
-verification as a fresh one, so reuse never changes results.
+plan), within one process (a small per-``EDag`` LRU of ``_ReplayPlan``
+objects) and across processes (``core/schedule_cache``, keyed by the
+trace digest, in the reference package's on-disk formats).  Every reused
+schedule goes through the same per-point verification as a fresh one, so
+reuse never changes results.  A plan rebuilt from a memory-mapped cache
+entry copies the maps once, into its device tensors.
 
 ``sweep_grid`` evaluates the full alpha × m × compute_slots product: one
 plan per (m, compute_slots) pair and one stacked replay per plan over the
@@ -44,7 +47,7 @@ import numpy as np
 import torch
 
 from . import backend as _bk
-from .counters import Stats
+from . import schedule_cache as _sc
 from .graph import EDag
 from .plan import ExecPolicy, SweepSpec
 
@@ -53,10 +56,12 @@ _MIN_BATCH_POINTS = 2
 # Per-EDag in-process plan memo: one entry per (m, compute_slots) pair.
 _PLAN_MEMO_CAP = 8
 
-#: Schedule-reuse counters: ``memory_hits`` (plans served from the per-EDag
-#: memo), ``misses``, ``record_runs`` (instrumented reference runs) and
-#: ``record_seconds`` (their serial host time, plan build included).
-stats = Stats(memory_hits=0, misses=0, record_runs=0, record_seconds=0.0)
+#: Schedule-reuse counters, shared with ``schedule_cache.stats`` (one
+#: object): ``memory_hits`` (plans served from the per-EDag memo),
+#: ``disk_hits``, ``misses``, ``record_runs`` (instrumented reference runs),
+#: ``record_seconds`` (their serial host time, plan build included),
+#: ``stores`` and ``quarantined``.
+stats = _sc.stats
 
 
 # --------------------------------------------------------------- event loop
@@ -481,6 +486,28 @@ class _ReplayPlan:
                        clamp=False, R_out=R)
         return F, R
 
+    def array_nbytes(self) -> dict:
+        """Byte sizes of the plan's live host arrays, keyed by name (the
+        augmented partition is the same order of size as the trace's own
+        CSR)."""
+        lv = self.lv
+        arrs = dict(topo=self.topo, rank=self.rank, O_mem=self.O_mem,
+                    O_alu=self.O_alu, Om_rel=self.Om_rel,
+                    Oa_rel=self.Oa_rel, is_mem_topo=self.is_mem_topo,
+                    level_aug=self.level_aug, esrc=lv.esrc,
+                    run_dst=lv.run_dst, run_starts=lv.run_starts,
+                    run_lens=lv.run_lens, run_ptr=lv.run_ptr,
+                    elevel_ptr=lv.elevel_ptr)
+        for name in ("qpred", "qonly_ptr", "qonly_dst"):
+            a = getattr(lv, name, None)
+            if a is not None:
+                arrs[name] = a
+        for name in ("prov", "cls_topo", "t_chk", "need_chk"):
+            a = getattr(self, name)
+            if a is not None:
+                arrs[name] = a
+        return {k: int(np.asarray(v).nbytes) for k, v in arrs.items()}
+
 
 def _enabler_pass(g: EDag, rank: torch.Tensor, F: torch.Tensor,
                   R: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
@@ -581,13 +608,79 @@ def _memo_plan(g: EDag, key, plan: _ReplayPlan) -> None:
         memo.popitem(last=False)
 
 
+def _validate_schedule(g: EDag, m: int, cs: int, topo, O_mem,
+                       O_alu) -> Optional[np.ndarray]:
+    """Structurally validate a candidate schedule; returns the rank array
+    (the inverse of ``topo``) or None.
+
+    ``topo`` must be a permutation that linearizes the DAG edges, the slot
+    chains the issue orders imply must run forward in it, and the orders
+    must partition the memory / ALU vertex sets.  Whether the candidate is
+    the right schedule for a sweep point is then decided by the per-point
+    (R, E, vid) verification: a wrong but well-formed schedule costs a
+    re-record, never a wrong makespan."""
+    n = g.n_vertices
+    W = int(g.is_mem.sum())
+    for arr in (topo, O_mem, O_alu):
+        if getattr(arr, "ndim", 0) != 1:
+            return None
+    if len(topo) != n or len(O_mem) != W or \
+            len(O_alu) != ((n - W) if cs else 0):
+        return None
+    for arr in (topo, O_mem, O_alu):
+        if len(arr) and not ((arr >= 0) & (arr < n)).all():
+            return None
+    if (np.bincount(topo, minlength=n) != 1).any():
+        return None
+    rank = np.empty(n, dtype=np.int32)
+    rank[topo] = np.arange(n, dtype=np.int32)
+    if len(g.src) and not (rank[g.src] < rank[g.dst]).all():
+        return None                   # not a linear extension of the eDAG
+    # the slot chains must run forward in rank too: with the check above
+    # every augmented edge then satisfies src < dst
+    if len(O_mem) > m and not \
+            (rank[O_mem[:-m]] < rank[O_mem[m:]]).all():
+        return None
+    if cs and len(O_alu) > cs and not \
+            (rank[O_alu[:-cs]] < rank[O_alu[cs:]]).all():
+        return None
+    if W and (np.bincount(O_mem, minlength=n) !=
+              g.is_mem.astype(np.int64)).any():
+        return None
+    if cs and len(O_alu) and \
+            (np.bincount(O_alu, minlength=n) !=
+             (~g.is_mem).astype(np.int64)).any():
+        return None
+    return rank
+
+
+def _plan_from_cache(g: EDag, m: int, cs: int, topo, O_mem, O_alu,
+                     level) -> Optional[_ReplayPlan]:
+    """Rebuild a replay plan from persisted arrays, or None if they fail
+    ``_validate_schedule``."""
+    if _validate_schedule(g, m, cs, topo, O_mem, O_alu) is None:
+        return None
+    return _ReplayPlan(g, topo, O_mem, O_alu, m, cs, level=level)
+
+
 def _get_plan(g: EDag, key) -> Optional[_ReplayPlan]:
-    """Look up a reusable replay plan in the per-EDag memo."""
+    """Look up a reusable replay plan: the per-EDag memo, then, for scalar
+    keys ``(m, cs, unit)``, the persistent schedule cache.  Class-mode
+    plans have no disk format (the overlay is not part of the digest)."""
     memo = getattr(g, "_replay_plans", None)
     if memo is not None and key in memo:
         memo.move_to_end(key)
         stats.add("memory_hits")
         return memo[key]
+    if key[0] != "classes" and g.n_vertices >= _sc.min_vertices():
+        m, cs, unit = key
+        got = _sc.load(g.trace_digest(), m, cs, g.n_vertices, unit)
+        if got is not None:
+            plan = _plan_from_cache(g, m, cs, *got)
+            if plan is not None:
+                stats.add("disk_hits")
+                _memo_plan(g, key, plan)
+                return plan
     stats.add("misses")
     return None
 
@@ -595,7 +688,8 @@ def _get_plan(g: EDag, key) -> Optional[_ReplayPlan]:
 def _record_plan(g: EDag, sim_lists, m: int, cs: int, a0: float,
                  unit: float, persist: bool):
     """One instrumented reference run -> (master makespan, replay plan);
-    the plan is memoized when ``persist``."""
+    when ``persist`` the plan is memoized and, for traces of at least
+    ``schedule_cache.min_vertices()``, stored on disk."""
     stats.add("record_runs")
     t0 = time.perf_counter()
     mk0, topo, O_mem, O_alu = _event_loop(
@@ -604,6 +698,9 @@ def _record_plan(g: EDag, sim_lists, m: int, cs: int, a0: float,
     stats.add("record_seconds", time.perf_counter() - t0)
     if persist:
         _memo_plan(g, (m, cs, float(unit)), plan)
+        if g.n_vertices >= _sc.min_vertices():
+            _sc.store(g.trace_digest(), m, cs, g.n_vertices, unit,
+                      topo, O_mem, O_alu, plan.level_aug)
     return mk0, plan
 
 

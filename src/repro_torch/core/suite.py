@@ -34,10 +34,11 @@ m × compute_slots grid for every member at once:
   homogeneous chains), and the F fill gathers each memory row's class
   alpha through the plan's device ``cls_mem`` column.
 
-Schedule reuse has two tiers here, the member memo and the recording run.
-The reference package also reads and writes a persistent schedule cache
-keyed by each member's trace digest; that disk tier comes with the port's
-``schedule_cache``.
+Schedule reuse has three tiers here: the member memo, the persistent
+schedule cache keyed by each member's trace digest (the entries the
+single-trace engine reads and writes, so suites and single traces warm
+each other across processes), and the recording run.  Class-mode block
+schedules are memo-only: the disk format carries no slot provenance.
 
 The analytic side rides the same union: ``suite_t_inf_sweep`` runs one
 batched span pass over the union and segments it per trace, and
@@ -54,6 +55,7 @@ import numpy as np
 import torch
 
 from . import backend as _bk
+from . import schedule_cache as _sc
 from . import scheduler as _sched
 from .counters import Stats
 from .graph import EDag, _auto_sweep_chunk, concat_edags
@@ -61,8 +63,9 @@ from .plan import ExecPolicy, SweepSpec
 from .scheduler import (_ReplayPlan, _attach_queue_partition,
                         _aug_level_valid, _event_loop, _event_loop_classes,
                         _memo_plan, _prov_check_arrays, _prov_qpred,
-                        _slot_qpred, _sweep_grid_spec, _to_dev, _verify_class,
-                        _verify_slots, simulate_batch)
+                        _slot_qpred, _sweep_grid_spec, _to_dev,
+                        _validate_schedule, _verify_class, _verify_slots,
+                        simulate_batch)
 
 # Per-suite union-plan memo, keyed by (member group, pairs, unit, classes).
 _SUITE_PLAN_CAP = 8
@@ -299,7 +302,9 @@ def _record(fn, *args):
 def _member_schedule(g: EDag, m: int, cs: int, unit: float, a0: float,
                      use_cache: bool):
     """One member's recorded schedule ``(topo, O_mem, O_alu, level|None,
-    fresh)``: the member's plan memo, else one recording run at ``a0``."""
+    fresh)``: the member's plan memo, then the disk (keyed by the member's
+    trace digest), else one recording run at ``a0``."""
+    n = g.n_vertices
     if use_cache:
         key = (m, cs, float(unit))
         memo = getattr(g, "_replay_plans", None)
@@ -308,6 +313,14 @@ def _member_schedule(g: EDag, m: int, cs: int, unit: float, a0: float,
             memo.move_to_end(key)
             _sched.stats.add("memory_hits")
             return p.topo, p.O_mem, p.O_alu, p.level_aug, False
+        if n >= _sc.min_vertices():
+            got = _sc.load(g.trace_digest(), m, cs, n, unit)
+            if got is not None:
+                topo, O_mem, O_alu, level = got
+                if _validate_schedule(g, m, cs, topo, O_mem,
+                                      O_alu) is not None:
+                    _sched.stats.add("disk_hits")
+                    return topo, O_mem, O_alu, level, False
         _sched.stats.add("misses")
     _, topo, O_mem, O_alu = _record(_event_loop, g.is_mem, g._sim_lists(),
                                     m, a0, unit, cs)
@@ -392,15 +405,21 @@ def _build_suite_plan(suite: EDagSuite, pairs, unit: float, a0,
             if level is None:
                 level = _bk.levelize(asrc, adst, n)
             if fresh and use_cache:
-                # the member memo is the only reuse tier: warm it, so a
-                # later single-trace sweep of this member skips recording
-                mkey = (("classes", m, cs, float(unit),
-                         g.mem_class_digest()) if classes
-                        else (m, cs, float(unit)))
-                _memo_plan(g, mkey,
-                           _ReplayPlan(g, topo, O_mem, O_alu, m, cs,
-                                       level=level, prov=prov,
-                                       classes=cls_col))
+                persisted = not classes and n >= _sc.min_vertices() and \
+                    _sc.store(g.trace_digest(), m, cs, n, unit, topo,
+                              O_mem, O_alu, level)
+                if not persisted:
+                    # below the disk floor, with persistence off, or in
+                    # class mode the member memo is the only tier that
+                    # makes this recording reusable: warm it, so a later
+                    # single-trace sweep of this member skips recording
+                    mkey = (("classes", m, cs, float(unit),
+                             g.mem_class_digest()) if classes
+                            else (m, cs, float(unit)))
+                    _memo_plan(g, mkey,
+                               _ReplayPlan(g, topo, O_mem, O_alu, m, cs,
+                                           level=level, prov=prov,
+                                           classes=cls_col))
             # block offsets: slot chains stay inside their block, missing
             # predecessors point at the shared sentinel row n_rows
             qpred_u[off:off + n] = np.where(qpred < n, qpred + off, n_rows)

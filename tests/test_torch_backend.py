@@ -28,6 +28,7 @@ CLEAN_ALPHAS = (50.0, 75.0, 125.0, 200.0, 300.0)
 @pytest.fixture(autouse=True)
 def cpu_backend(monkeypatch):
     monkeypatch.setenv("EDAN_TORCH_BACKEND", "cpu")
+    monkeypatch.setenv("EDAN_SCHEDULE_CACHE", "off")
     for knob in ("EDAN_X64", "EDAN_REPLAY_DTYPE", "EDAN_BACKEND"):
         monkeypatch.delenv(knob, raising=False)
 

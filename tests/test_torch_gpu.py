@@ -26,6 +26,7 @@ def card(monkeypatch):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     monkeypatch.setenv("EDAN_TORCH_BACKEND", "cuda")
+    monkeypatch.setenv("EDAN_SCHEDULE_CACHE", "off")
     for knob in ("EDAN_X64", "EDAN_REPLAY_DTYPE"):
         monkeypatch.delenv(knob, raising=False)
     return torch.device("cuda")
@@ -551,3 +552,89 @@ def test_search_placement_on_card_equals_host(card):
                 a.marginal) == (b.local, b.makespan, b.all_local,
                                 b.all_remote, b.marginal)
         assert np.array_equal(a.curve, b.curve)
+
+
+# ----------------------------------------------- persistence and the service
+
+def _service_requests(backend, names=("atax", "bicg", "mvt")):
+    from repro_torch.serve import AnalysisRequest
+    return [AnalysisRequest(kernel=nm, n=8, alphas=(60.0, 120.0, 240.0),
+                            ms=(2, 4), backend=backend) for nm in names]
+
+
+def _same_reports(a: dict, b: dict) -> bool:
+    return sorted(a) == sorted(b) and all(
+        np.asarray(a[k]).tobytes() == np.asarray(b[k]).tobytes()
+        for k in a)
+
+
+def test_service_answers_on_rung_0_on_the_card(card, tmp_path, monkeypatch):
+    """A union batch answered on the level kernel on the card, at rung 0,
+    equal bit for bit to the host's answers."""
+    from repro_torch.serve import AnalysisService, faults
+    monkeypatch.setenv("EDAN_SCHEDULE_CACHE", str(tmp_path))
+    faults.reset()
+    B.reset_stats()
+    launches = level_step.launches
+    out = AnalysisService(start=False, backoff_s=0.0).process(
+        _service_requests(None))
+    assert all(r.ok for r in out) and len(out[0].batch_rids) == 3
+    for r in out:
+        assert r.policy == {"backend": "cuda", "replay_dtype": "float32",
+                            "demotions": 0}
+    assert B.stats["cuda_chunks"] > 0 and B.stats["cpu_chunks"] == 0
+    assert level_step.launches > launches
+    host = AnalysisService(start=False, backoff_s=0.0).process(
+        _service_requests("cpu"))
+    for a, b in zip(out, host):
+        assert _same_reports(a.report, b.report)
+
+
+def test_kernel_fault_demotes_visibly(card, tmp_path, monkeypatch):
+    """A fault inside the level kernel's dispatch reaches the service's
+    replay stage: the request ends on float64 on the card, one rung down,
+    with its demotion recorded, and its answer is the clean one."""
+    from repro_torch.serve import AnalysisService, faults
+    monkeypatch.setenv("EDAN_SCHEDULE_CACHE", str(tmp_path))
+    faults.reset()
+    try:
+        (clean,) = AnalysisService(start=False, backoff_s=0.0).process(
+            _service_requests(None, ("atax",)))
+        faults.install("kernel", "backend", count=1)
+        (res,) = AnalysisService(start=False, backoff_s=0.0).process(
+            _service_requests(None, ("atax",)))
+        assert faults.fire_log[("kernel", "backend")] == 1
+    finally:
+        faults.reset()
+    assert res.ok and res.retries == 1
+    assert res.policy == {"backend": "cuda", "replay_dtype": "float64",
+                          "demotions": 1}
+    assert _same_reports(res.report, clean.report)
+
+
+def test_format4_warm_replay_from_mapped_entries(card, tmp_path,
+                                                 monkeypatch):
+    """A warm process's plans come from read-only memory-mapped format-4
+    entries (and its trace from the trace store), copied once into device
+    tensors: no warning, no recording, the cold grid's bits."""
+    import warnings
+    from repro_torch.core import load_edag, save_edag, sweep_grid
+    from repro_torch.core import schedule_cache as sc
+    monkeypatch.setenv("EDAN_SCHEDULE_CACHE", str(tmp_path / "sched"))
+    monkeypatch.setenv("EDAN_SCHEDULE_CACHE_MIN", "0")
+    monkeypatch.setenv("EDAN_SCHEDULE_CACHE_MMAP_MIN", "0")
+    alphas = np.array([50.0, 150.0, 300.0])
+    g = polybench.trace_kernel("gemm", 10)
+    cold = sweep_grid(g, alphas, ms=(2, 4), compute_slots=(0, 8))
+    assert len(list((tmp_path / "sched").glob("*.d"))) == 4
+    path = save_edag(g, tmp_path / "trace")
+    del g
+    sc.reset_stats()
+    B.reset_stats()
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        warm = sweep_grid(load_edag(path), alphas, ms=(2, 4),
+                          compute_slots=(0, 8))
+    assert sc.stats["disk_hits"] == 4 and sc.stats["record_runs"] == 0
+    assert B.stats["cuda_chunks"] > 0 and B.stats["cpu_chunks"] == 0
+    assert np.asarray(cold).tobytes() == np.asarray(warm).tobytes()

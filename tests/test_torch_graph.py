@@ -18,6 +18,7 @@ from repro_torch.core import metrics as tmet
 @pytest.fixture(autouse=True)
 def cpu_backend(monkeypatch):
     monkeypatch.setenv("EDAN_TORCH_BACKEND", "cpu")
+    monkeypatch.setenv("EDAN_SCHEDULE_CACHE", "off")
     for knob in ("EDAN_X64", "EDAN_REPLAY_DTYPE", "EDAN_BACKEND"):
         monkeypatch.delenv(knob, raising=False)
 

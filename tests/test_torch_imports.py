@@ -26,7 +26,8 @@ def test_the_port_has_files():
     assert {"backend.py", "level_step.py", "paper.py", "wkv6.py", "ssd.py",
             "rwkv6.py", "zamba2.py", "engine.py", "serve.py",
             "flash_attention.py", "transformer.py", "moe.py",
-            "chip_smoke.py"} <= names
+            "schedule_cache.py", "trace_store.py", "analysis.py",
+            "faults.py", "chip_smoke.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

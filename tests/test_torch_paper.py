@@ -43,6 +43,7 @@ lw a7,0(a6);0x40080300
 @pytest.fixture(autouse=True)
 def cpu_backend(monkeypatch):
     monkeypatch.setenv("EDAN_TORCH_BACKEND", "cpu")
+    monkeypatch.setenv("EDAN_SCHEDULE_CACHE", "off")
     for knob in ("EDAN_X64", "EDAN_REPLAY_DTYPE", "EDAN_BACKEND"):
         monkeypatch.delenv(knob, raising=False)
 

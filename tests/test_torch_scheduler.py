@@ -26,6 +26,7 @@ PALETTE = np.array([0.5, 1.0, 2.0, 3.0, 50.0, 200.0, 333.25])
 @pytest.fixture(autouse=True)
 def cpu_backend(monkeypatch):
     monkeypatch.setenv("EDAN_TORCH_BACKEND", "cpu")
+    monkeypatch.setenv("EDAN_SCHEDULE_CACHE", "off")
     for knob in ("EDAN_X64", "EDAN_REPLAY_DTYPE", "EDAN_BACKEND"):
         monkeypatch.delenv(knob, raising=False)
 

@@ -8,11 +8,10 @@ tie-heavy alphas, empty and singleton suites, unsorted and duplicate
 alphas, degenerate machines, the budget invariant, the member-memo tier,
 tie-heavy fallback, the fallback's point count, ``suite_t_inf_sweep``, ``suite_grid_report``,
 class-vector grids, ``suite_axis_latency_grid``, ``_member_groups`` and
-heterogeneous grouping.  Every result must be bit-for-bit equal to the
-JAX package's, under the float64 and the float32 replay policy.  (The
-disk-cache cases, ``test_suite_cache_cold_then_warm`` and
-``test_suite_reuses_single_trace_schedules_and_vice_versa``, wait for the
-port's schedule cache.)
+heterogeneous grouping, and the disk-cache cases (cold then warm suites,
+and suites and single traces warming each other through the persistent
+schedule cache).  Every result must be bit-for-bit equal to the JAX
+package's, under the float64 and the float32 replay policy.
 """
 import numpy as np
 import pytest
@@ -238,16 +237,83 @@ def test_suite_warms_member_memo_and_memoizes_union_plans():
     assert tsuite.stats["plans_built"] == built
 
 
-def test_suite_use_cache_false_records_and_keeps_nothing():
+@pytest.fixture
+def cache_env(tmp_path, monkeypatch):
+    """Redirect the schedule cache to a private tmp dir, no size floor."""
+    monkeypatch.setenv("EDAN_SCHEDULE_CACHE", str(tmp_path))
+    monkeypatch.setenv("EDAN_SCHEDULE_CACHE_MIN", "0")
+    tsched.stats.reset()
+    return tmp_path
+
+
+def test_suite_use_cache_false_records_and_keeps_nothing(cache_env):
     rs, ts = suites([(14, 30), (15, 25)])
     alphas = [50.0, 200.0]
     tsched.stats.reset()
     got = T.suite_sweep_grid(ts, alphas, ms=[2], use_cache=False)
     assert tsched.stats["record_runs"] == 2
+    assert tsched.stats["stores"] == 0
+    assert list(cache_env.iterdir()) == []
     assert len(ts._suite_plans) == 0
     assert all(len(g._replay_plans) == 0 for g in ts.members)
     assert bits(got, R.suite_sweep_grid(rs, alphas, ms=[2],
                                         use_cache=False))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_suite_cache_cold_then_warm(cache_env, dtype):
+    """A cold suite records one schedule per (member, m, cs) and stores
+    each under its member's trace digest; a warm suite (fresh objects, the
+    same directory) records none and gives the same bits; a third run on
+    the same suite object hits its union-plan memo.  The reference's
+    suite, sharing the directory, is warm too."""
+    alphas = [50.0, 100.0, 200.0]
+    ms, css = [2, 4], [0, 2]
+    specs = [(0, 50), (1, 30), (2, 40)]
+    n_blocks = len(specs) * len(ms) * len(css)
+    _, ts1 = suites(specs)
+    cold = T.suite_sweep_grid(ts1, alphas, ms=ms, compute_slots=css,
+                              replay_dtype=dtype)
+    assert tsched.stats["record_runs"] == n_blocks
+    assert tsched.stats["stores"] == n_blocks
+    tsched.stats.reset()
+    rs2, ts2 = suites(specs)
+    warm = T.suite_sweep_grid(ts2, alphas, ms=ms, compute_slots=css,
+                              replay_dtype=dtype)
+    assert tsched.stats["record_runs"] == 0
+    assert tsched.stats["disk_hits"] == n_blocks
+    assert bits(cold, warm)
+    tsched.stats.reset()
+    memo = T.suite_sweep_grid(ts2, alphas, ms=ms, compute_slots=css,
+                              replay_dtype=dtype)
+    assert tsched.stats["record_runs"] == 0
+    assert tsched.stats["disk_hits"] == 0
+    assert bits(memo, warm)
+    R.schedule_cache.reset_stats()
+    assert bits(R.suite_sweep_grid(rs2, alphas, ms=ms, compute_slots=css),
+                warm)
+    assert R.schedule_cache.stats["record_runs"] == 0
+    assert R.schedule_cache.stats["disk_hits"] == n_blocks
+
+
+def test_suite_reuses_single_trace_schedules_and_vice_versa(cache_env):
+    """The suite shares the member-digest-keyed entries with the
+    single-trace engine in both directions."""
+    alphas = [50.0, 100.0, 200.0]
+    _, t9 = rand_pair(9, 60)
+    single = T.latency_sweep(t9, alphas, m=3, compute_slots=2)
+    tsched.stats.reset()
+    rs, ts = suites([(9, 60), (10, 20)])
+    got = T.suite_sweep_grid(ts, alphas, ms=[3], compute_slots=[2])
+    assert tsched.stats["record_runs"] == 1          # only the new member
+    assert bits(got[0, :, 0, 0], single)
+    assert bits(got, R.suite_sweep_grid(rs, alphas, ms=[3],
+                                        compute_slots=[2]))
+    tsched.stats.reset()
+    _, fresh = rand_pair(10, 20)                     # the suite warmed it
+    T.latency_sweep(fresh, alphas, m=3, compute_slots=2)
+    assert tsched.stats["record_runs"] == 0
+    assert tsched.stats["disk_hits"] == 1
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
