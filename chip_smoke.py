@@ -112,7 +112,28 @@ Phases, each timed; any failure ends the run with a non-zero exit:
              ``cache`` fault (quarantined and re-recorded) and one wave
              through the admission thread; every outcome and report the
              JAX package's; requests/s, p50/p99 ms and a profiled wave.
-10. report — the card line, the ``{"kernels": [...]}`` line, and last the
+10. frontend — the HLO frontend and the PyTorch-graph frontend against
+             ``src/repro_torch/configs/frontend_expected.json`` (the JAX
+             package's results): (a) the four HLO fixtures under
+             ``configs/hlo/`` (``test_hlo.py``'s SYNTH, its compiled scan
+             module, the (2, 4) train and decode steps) through
+             ``analyze_collectives``, the FLOP and byte estimates and
+             ``collective_sensitivity`` (m=4), every value equal, K1
+             launching for the per-axis depths; (b) the apps' PyTorch
+             twins in float64 on the card (the eleven PolyBench twins at
+             N=20 within 1e-12 of numpy, CG at n=16 x 6 iterations, its
+             residual history within 1e-10 of ``reference_solution``,
+             LULESH at ne=10 x 3 within 1e-12 of its host run), with
+             milliseconds; (c) each twin traced abstractly from float32
+             arguments on the card (vertices, edges, levels, seconds to
+             trace), its eDAG the recorded one and, for the ten twins
+             whose decompositions agree, the JAX package's; ``report``
+             and ``sweep_grid`` (13 alphas x m (2, 4, 8) x (0, 8) ALU
+             slots) under ``("cuda", "float32")`` bit for bit the JAX
+             package's, no replay chunk on the host; (d) K1 bitwise
+             against its plain version on the CG twin's DAG and its
+             replay plan (m=4, 8 ALU slots).
+11. report — the card line, the ``{"kernels": [...]}`` line, and last the
              ``{"ok": true, "device": {...}}`` line.
 
 Usage: python3 chip_smoke.py   (from the root of a checkout, one card)
@@ -1763,6 +1784,214 @@ def service_scenarios(expected: dict, work: Path) -> dict:
     return out
 
 
+# ----------------------------------------------------------- frontend phase
+
+def jsonable(x):
+    return json.loads(json.dumps(x))
+
+
+def hlo_checks(expected: dict) -> dict:
+    """(a) Each HLO fixture through the port's parser and analyses, equal
+    to the JAX package's results (``frontend_expected.json``)."""
+    import gzip
+    from repro_torch.core import (analyze_collectives, collective_sensitivity,
+                                  hlo_flops_estimate, hlo_hbm_bytes_estimate)
+    out = {}
+    for name, want in sorted(expected["hlo"].items()):
+        text = gzip.decompress((SRC / "repro_torch" / "configs" / "hlo" /
+                                f"{name}.hlo.gz").read_bytes()).decode()
+        axes = [tuple(a) for a in want["mesh_axes"]]
+        with k1_counts() as k1:
+            coll = analyze_collectives(text, axes)
+            flops = hlo_flops_estimate(text)
+            hbm = hlo_hbm_bytes_estimate(text)
+            sens = collective_sensitivity(text, axes,
+                                          m=expected["config"]["sens_m"])
+        sens = dict(per_axis={k: v.row() for k, v in
+                              sens["per_axis"].items()}, raw=sens["raw"])
+        for label, got, exp in (
+                ("analyze_collectives", coll, want["analyze_collectives"]),
+                ("flops", flops, want["flops"]),
+                ("hbm_bytes", hbm, want["hbm_bytes"]),
+                ("collective_sensitivity", sens,
+                 want["collective_sensitivity"])):
+            if jsonable(got) != exp:
+                raise SystemExit(f"HLO {name}: {label} {got} is not the JAX "
+                                 f"package's {exp}")
+        out[name] = dict(k1.row(), text_bytes=len(text.encode()),
+                         collectives=coll["total"]["count"],
+                         depth=coll["total"]["depth"])
+        print(f"  hlo {name}: {json.dumps(out[name])}", flush=True)
+    return out
+
+
+def rel_err_np(a, b) -> float:
+    import numpy as np
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.max(np.abs(a - b)) / max(np.max(np.abs(b)), 1e-300))
+
+
+def timed_ms(fn) -> tuple:
+    """(result, ms) of one call, after a synchronise on each side."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, (time.perf_counter() - t0) * 1e3
+
+
+def run_twins(size: dict) -> dict:
+    """(b) The twins in float64 on the card, held to numpy (PolyBench
+    1e-12, CG's residual history 1e-10) and LULESH to its run on the host
+    (1e-12); milliseconds of a first and a second call."""
+    import torch
+    from repro_torch.apps import hpcg, lulesh, polybench
+    out = {}
+    for name, fn in polybench.TORCH_KERNELS.items():
+        args = polybench.twin_inputs(name, size["polybench_N"])
+        dev = [torch.from_numpy(a).to("cuda") for a in args]
+        _, first = timed_ms(lambda: fn(*dev))
+        res, ms = timed_ms(lambda: fn(*dev))
+        res = res if isinstance(res, tuple) else (res,)
+        err = max(rel_err_np(r.cpu().numpy(), w) for r, w in
+                  zip(res, polybench.twin_numpy(name, args)))
+        if not err <= 1e-12:
+            raise SystemExit(f"twin {name} on the card: relative error {err}")
+        out[name] = dict(ms=ms, first_ms=first, rel_err=err)
+    n, iters = size["hpcg_n"], size["hpcg_iters"]
+    b = torch.from_numpy(hpcg.build_problem(n, size["seed"])).to("cuda")
+    _, first = timed_ms(lambda: hpcg.cg_torch(b, n, iters))
+    (_, hist), ms = timed_ms(lambda: hpcg.cg_torch(b, n, iters))
+    err = rel_err_np(hist.cpu().numpy(),
+                     hpcg.reference_solution(n, iters, size["seed"])[1])
+    if not err <= 1e-10:
+        raise SystemExit(f"CG twin on the card: residual history relative "
+                         f"error {err}")
+    out["cg"] = dict(ms=ms, first_ms=first, rel_err=err)
+    ne, iters = size["lulesh_ne"], size["lulesh_iters"]
+    _, first = timed_ms(lambda: lulesh.run_torch(ne, iters, size["seed"],
+                                                 "cuda"))
+    (st, hist), ms = timed_ms(lambda: lulesh.run_torch(ne, iters,
+                                                       size["seed"], "cuda"))
+    got = [a.cpu().numpy() for a in st + (hist,)]
+    ref_st, ref_hist = lulesh.lulesh_numpy(ne, iters, size["seed"])
+    err = max(rel_err_np(a, r) for a, r in zip(got, ref_st + (ref_hist,)))
+    host_st, host_hist = lulesh.run_torch(ne, iters, size["seed"], "cpu")
+    host_err = max(rel_err_np(a, h.numpy())
+                   for a, h in zip(got, host_st + (host_hist,)))
+    if not (err <= 1e-12 and host_err <= 1e-12):
+        raise SystemExit(f"LULESH twin on the card: relative error {err} "
+                         f"from numpy, {host_err} from the host run")
+    out["lulesh"] = dict(ms=ms, first_ms=first, rel_err=err,
+                         host_rel_err=host_err)
+    for name, row in out.items():
+        print(f"  twin {name} on the card: {json.dumps(row)}", flush=True)
+    return out
+
+
+def trace_twins(size: dict) -> dict:
+    """The twins' eDAGs, traced abstractly from float32 arguments on the
+    card (nothing runs), with seconds to trace."""
+    import numpy as np
+    import torch
+    from repro_torch.apps import hpcg, lulesh, polybench
+    from repro_torch.core import edag_from_fn
+    cuda = lambda a: torch.empty(np.shape(a), dtype=torch.float32,  # noqa
+                                 device="cuda")
+    jobs = {name: (fn, [cuda(a) for a in polybench.twin_inputs(
+        name, size["polybench_N"])])
+        for name, fn in polybench.TORCH_KERNELS.items()}
+    n, iters = size["hpcg_n"], size["hpcg_iters"]
+    jobs["cg"] = (lambda b: hpcg.cg_torch(b, n, iters),
+                  [cuda(hpcg.build_problem(n))])
+    ne, steps = size["lulesh_ne"], size["lulesh_iters"]
+    step = lulesh.make_torch_step(ne, "cuda")
+    jobs["lulesh"] = (lambda *s: lulesh.run_steps(step, s, steps),
+                      [cuda(a) for a in lulesh.initial_state(ne)])
+    out = {}
+    for name, (fn, args) in jobs.items():
+        t0 = time.perf_counter()
+        g = edag_from_fn(fn, *args)
+        g.trace_digest()
+        out[name] = (g, time.perf_counter() - t0)
+    return out
+
+
+def run_frontend(expected: dict) -> dict:
+    """Phase "frontend": (a) the HLO fixtures, (b) the twins on the card,
+    (c) their eDAGs traced and analysed on the card (report and sweep grid
+    under ``("cuda", "float32")``, every value the JAX package's, no chunk
+    on the host).  K1's kernel-vs-plain check (d) runs after, outside the
+    counted run."""
+    # as the fixture was written
+    from frontend_expected import MUST_AGREE, agreeing, plain, summary
+    from repro_torch.core import backend as B
+    from repro_torch.core import report, sweep_grid
+    from repro_torch.core.plan import ExecPolicy
+    size, grid = expected["config"]["twins"], expected["config"]["grid"]
+    out = dict(hlo=hlo_checks(expected), twins=run_twins(size))
+    policy = ExecPolicy.resolve(backend="cuda", replay_dtype="float32")
+    agree = agreeing(expected)
+    missing = sorted(set(MUST_AGREE) - set(agree))
+    if missing:
+        raise SystemExit(f"the fixture's twins {missing} differ from the "
+                         f"JAX package's")
+    B.reset_stats()
+    traced = {}
+    for name, (g, secs) in trace_twins(size).items():
+        got = summary(g)
+        if got != {k: expected["port_twins"][name][k] for k in got}:
+            raise SystemExit(f"twin {name}: the eDAG traced here differs "
+                             f"from the recorded one: {got['vertices']} "
+                             f"vertices, digest {got['digest']}")
+        ref = expected["reference_twins"][name]
+        if name in agree and got != ref:
+            raise SystemExit(f"twin {name}: the eDAG differs from the JAX "
+                             f"package's ({ref['vertices']} vertices)")
+        with k1_counts() as k1:
+            rep = jsonable(plain(vars(report(g))))
+            sg = sweep_grid(g, grid["alphas"], ms=grid["ms"],
+                            compute_slots=grid["compute_slots"],
+                            policy=policy)
+        want = expected["port_twins"][name]
+        if rep != want["report"]:
+            raise SystemExit(f"twin {name}: report {rep} is not the JAX "
+                             f"package's {want['report']}")
+        if sg.tolist() != want["sweep_grid"]:
+            raise SystemExit(f"twin {name}: sweep grid differs from the JAX "
+                             f"package's")
+        traced[name] = dict(vertices=got["vertices"], edges=got["edges"],
+                            levels=int(g._level_csr().n_levels),
+                            trace_s=secs, reference_vertices=ref["vertices"],
+                            same_as_reference=got == ref, **k1.row())
+        print(f"  frontend {name}: {json.dumps(traced[name])}", flush=True)
+    if B.stats["cuda_chunks"] <= 0 or B.stats["cpu_chunks"] != 0:
+        raise SystemExit(f"frontend analyses off the card: {dict(B.stats)}")
+    out.update(traced=traced, replay=B.stats.snapshot())
+    return out
+
+
+def frontend_kernel_checks(size: dict) -> tuple:
+    """(d) K1 against its plain version, bitwise, on the CG twin's eDAG
+    and its replay plan (m=4, 8 ALU slots)."""
+    import numpy as np
+    import torch
+    from repro_torch.apps import hpcg
+    from repro_torch.core import edag_from_fn
+    n, iters = size["hpcg_n"], size["hpcg_iters"]
+    g = edag_from_fn(lambda b: hpcg.cg_torch(b, n, iters),
+                     torch.empty(n ** 3, device="meta"))
+    k = len(np.linspace(50.0, 300.0, 13))
+    n_cases, err = 0, 0.0
+    for lv, seed, label in ((g._level_csr(), 21, "CG twin DAG"),
+                            (replay_plan(g, 4, 8).lv, 22,
+                             "CG twin replay m=4 cs=8")):
+        c, e = check_kernel(lv, k, seed, label)
+        n_cases, err = n_cases + c, max(err, e)
+    return n_cases, err
+
+
 # ------------------------------------------------------ serving phases
 
 def kernel_wrappers() -> dict:
@@ -2329,6 +2558,23 @@ def main() -> int:
         print(f"  service: {json.dumps(service_res)}", flush=True)
         print(f"  service launches: {service_launches}", flush=True)
 
+    frontend_expected = json.loads((SRC / "repro_torch" / "configs" /
+                                    "frontend_expected.json").read_text())
+    with phase("frontend"):
+        reset_counts()
+        frontend_res = run_frontend(frontend_expected)
+        frontend_launches = read_counts()["level_step"]
+        hlo_grids = sum(r["k1_grids"] for r in frontend_res["hlo"].values())
+        if frontend_launches <= 0 or hlo_grids <= 0:
+            raise SystemExit(f"the frontend path launched level_step "
+                             f"{frontend_launches} times, {hlo_grids} for "
+                             f"the HLO fixtures")
+        fe_cases, fe_err = frontend_kernel_checks(
+            frontend_expected["config"]["twins"])
+        n_cases += fe_cases
+        max_err = max(max_err, fe_err)
+        print(f"  frontend launches: {frontend_launches}", flush=True)
+
     with phase("report"):
         m = meas["gemm_replay_f32"]
         kern = dict(
@@ -2352,6 +2598,7 @@ def main() -> int:
             launches_suite=suite_launches["level_step"],
             launches_persist=persist_launches,
             launches_service=service_launches,
+            launches_frontend=frontend_launches,
             plain_ms_union=union_meas["narrow"]["union"]["plain_ms"],
             library_ms_union=union_meas["narrow"]["union"]["library_ms"],
             plain_ms_union_wide=union_meas["wide"]["union"]["plain_ms"],
@@ -2414,6 +2661,7 @@ def main() -> int:
             timings=att_times))
         print(f"  serve: {json.dumps(served)}", flush=True)
         print(f"  fixtures: {json.dumps(fixtures)}", flush=True)
+        print(f"  frontend: {json.dumps(frontend_res)}", flush=True)
         print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
     # the last three lines: the card, the kernels, the verdict
     print(card_line(), flush=True)

@@ -10,6 +10,7 @@ DESIGN.md.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..core.trace import Tracer, Value
 
@@ -184,3 +185,56 @@ def trace_cg(n: int = 8, iters: int = 5, cache=None, seed: int = 0):
         rs_old = rs_new
         res.append(float(rs_new.val))
     return tr.edag, res
+
+
+# ------------------------------------------------------------------ torch CG
+
+def spmv_torch(p, n: int):
+    """The 27-point stencil product on the device of ``p``.  Each
+    neighbour's contribution is read from a zero-padded copy of the grid,
+    so the halo adds nothing, as the numpy and scalar versions skip it;
+    the neighbours are subtracted in ``neighbor_offsets`` order."""
+    P = p.reshape(n, n, n)
+    Pp = torch.nn.functional.pad(P, (1, 1, 1, 1, 1, 1))
+    out = 26.0 * P
+    for dx, dy, dz in neighbor_offsets():
+        out = out - Pp[1 - dx:1 - dx + n, 1 - dy:1 - dy + n,
+                       1 - dz:1 - dz + n]
+    return out.reshape(-1)
+
+
+def cg_torch(b, n: int, iters: int):
+    """Plain CG on the device of ``b``; returns x and the residual history
+    (r·r after each iteration).  The iterations are a Python loop, which
+    tracing unrolls."""
+    x = torch.zeros_like(b)
+    r, p, rs_old = b, b, torch.dot(b, b)
+    hist = []
+    for _ in range(iters):
+        Ap = spmv_torch(p, n)
+        alpha = rs_old / torch.dot(p, Ap)
+        x = x + alpha * p
+        r = r - alpha * Ap
+        rs_new = torch.dot(r, r)
+        p = r + (rs_new / rs_old) * p
+        rs_old = rs_new
+        hist.append(rs_new)
+    return x, torch.stack(hist)
+
+
+def reference_solution(n: int, iters: int, seed: int = 0):
+    """NumPy CG for cross-validation of the traced and torch versions."""
+    b = build_problem(n, seed)
+    x = np.zeros_like(b)
+    r = b.copy(); p = b.copy(); rs_old = r @ r
+    hist = []
+    for _ in range(iters):
+        Ap = spmv_numpy(p, n)
+        alpha = rs_old / (p @ Ap)
+        x += alpha * p
+        r -= alpha * Ap
+        rs_new = r @ r
+        p = r + (rs_new / rs_old) * p
+        rs_old = rs_new
+        hist.append(rs_new)
+    return x, np.array(hist)

@@ -12,7 +12,9 @@ skeleton.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
+from ..core.backend import device_for
 from ..core.trace import Tracer
 
 
@@ -105,3 +107,91 @@ def trace_step(ne: int = 6, iters: int = 2, cache=None, seed: int = 0):
                 value=b.alu(le, qdt, label="+"), label="st e")
         b.emit()
     return tr.edag
+
+
+# -------------------------------------------------------------------- torch
+
+def _device(device) -> torch.device:
+    """``device`` as given, else the selected backend's (the card unless
+    ``$EDAN_TORCH_BACKEND`` says otherwise; never the host on its own)."""
+    return device_for(None) if device is None else torch.device(device)
+
+
+def make_torch_step(ne: int, device=None):
+    """One leapfrog step over the mesh's connectivity (held on ``device``,
+    default the selected backend's):
+    ``step(state, _=None) -> (state, sum(e))``, state ``(x, v, e, q, m)``.
+    The scatter-add of nodal forces is ``index_add``."""
+    conn = torch.as_tensor(mesh_connectivity(ne), device=_device(device))
+    flat = conn.reshape(-1)
+
+    def step(state, _=None):
+        x, v, e, q, m = state
+        corners = x[conn]                                 # (nelem, 8) gather
+        vol = corners.sum(dim=1)
+        press = e * vol + q
+        share = press * 0.125
+        f = torch.zeros_like(x).index_add(
+            0, flat, share.repeat_interleave(8))          # scatter-add
+        a = f / m
+        v = v + a * 1e-3
+        x = x + v * 1e-3
+        gv = v[conn]
+        g = gv[:, 0] - gv[:, 1:].sum(dim=1)
+        q = g * g
+        e = e + q * 1e-3
+        return (x, v, e, q, m), torch.sum(e)
+
+    return step
+
+
+def initial_state(ne: int, seed: int = 0) -> tuple:
+    """The seeded float64 numpy state ``(x, v, e, q, m)`` the reference's
+    JAX run starts from."""
+    rng = np.random.default_rng(seed)
+    nnode = (ne + 1) ** 3
+    nelem = ne ** 3
+    return (rng.standard_normal(nnode), np.zeros(nnode),
+            np.abs(rng.standard_normal(nelem)) + 1.0, np.zeros(nelem),
+            np.abs(rng.standard_normal(nnode)) + 1.0)
+
+
+def run_steps(step, state, iters: int):
+    """``iters`` steps from ``state``: (final state, stacked sum(e)).  The
+    steps are a Python loop, which tracing unrolls."""
+    hist = []
+    for _ in range(iters):
+        state, h = step(state)
+        hist.append(h)
+    return state, torch.stack(hist)
+
+
+def run_torch(ne: int = 6, iters: int = 2, seed: int = 0, device=None,
+              dtype=torch.float64):
+    """``iters`` steps from ``initial_state(ne, seed)`` on ``device``
+    (default the selected backend's): (final state, stacked sum(e))."""
+    device = _device(device)
+    state = tuple(torch.as_tensor(a, dtype=dtype, device=device)
+                  for a in initial_state(ne, seed))
+    return run_steps(make_torch_step(ne, device), state, iters)
+
+
+def lulesh_numpy(ne: int, iters: int, seed: int = 0):
+    """The leapfrog step in float64 numpy (``np.add.at`` scatter-add): the
+    oracle the twin is held to."""
+    conn = mesh_connectivity(ne)
+    x, v, e, q, m = (a.copy() for a in initial_state(ne, seed))
+    hist = []
+    for _ in range(iters):
+        vol = x[conn].sum(axis=1)
+        share = (e * vol + q) * 0.125
+        f = np.zeros_like(x)
+        np.add.at(f, conn.reshape(-1), np.repeat(share, 8))
+        v = v + (f / m) * 1e-3
+        x = x + v * 1e-3
+        gv = v[conn]
+        g = gv[:, 0] - gv[:, 1:].sum(axis=1)
+        q = g * g
+        e = e + q * 1e-3
+        hist.append(e.sum())
+    return (x, v, e, q, m), np.array(hist)

@@ -9,6 +9,7 @@ computed exactly as in the paper.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..core.trace import Tracer, TracedArray, Value
 
@@ -572,3 +573,133 @@ def trace_kernel(name: str, N: int, cache=None, max_regs=None,
     tr = Tracer(cache=cache, max_regs=max_regs, false_deps=false_deps)
     SCALAR_KERNELS[name](tr, N, rng)
     return tr.edag
+
+
+# --------------------------------------------------------------------------
+# PyTorch twins (same math as the scalar kernels' C semantics) for the
+# PyTorch-graph frontend and for running on the card.  They run on the
+# device of their inputs; no Python control flow depends on the data.
+# --------------------------------------------------------------------------
+
+def t_2mm(A, B, C, D, alpha=1.5, beta=1.2):
+    return (alpha * A @ B) @ C + beta * D
+
+def t_3mm(A, B, C, D):
+    return (A @ B) @ (C @ D)
+
+def t_atax(A, x):
+    return A.T @ (A @ x)
+
+def t_bicg(A, p, r):
+    return A @ p, A.T @ r
+
+def t_mvt(A, x1, x2, y1, y2):
+    return x1 + A @ y1, x2 + A.T @ y2
+
+def t_gemm(A, B, C, alpha=1.5, beta=1.2):
+    return alpha * A @ B + beta * C
+
+def _outer(u, v):
+    # as jnp.outer forms it: a column times a row
+    return u.unsqueeze(1) * v.unsqueeze(0)
+
+def t_gemver(A, u1, v1, u2, v2, y, z, alpha=1.5, beta=1.2):
+    A = A + _outer(u1, v1) + _outer(u2, v2)
+    x = beta * (A.T @ y) + z
+    return A, x, alpha * (A @ x)
+
+def t_gesummv(A, B, x, alpha=1.5, beta=1.2):
+    return alpha * (A @ x) + beta * (B @ x)
+
+def t_syrk(A, C, alpha=1.5, beta=1.2):
+    return alpha * A @ A.T + beta * C
+
+def t_syr2k(A, B, C, alpha=1.5, beta=1.2):
+    return alpha * (A @ B.T + B @ A.T) + beta * C
+
+def _trisolv_step(x, row):
+    Li, bi, di, ei = row
+    xi = (bi - Li @ x) / di
+    return torch.where(ei, xi, x), ()
+
+def t_trisolv(L, b):
+    """Forward substitution as a scan over the rows of L.  Row i's inputs
+    arrive as scanned slices (its row of L, b_i, L_ii and the one-hot row
+    selecting x_i), since a scan body may not index with the step counter;
+    ``where`` sets x_i as ``.at[i].set`` does."""
+    from torch._higher_order_ops.scan import scan
+    eye = torch.eye(b.shape[0], dtype=torch.bool, device=b.device)
+    x, _ = scan(_trisolv_step, torch.zeros_like(b),
+                (L, b, torch.diagonal(L), eye))
+    return x
+
+TORCH_KERNELS = {
+    "2mm": t_2mm, "3mm": t_3mm, "atax": t_atax, "bicg": t_bicg,
+    "mvt": t_mvt, "gemm": t_gemm, "gemver": t_gemver, "gesummv": t_gesummv,
+    "syrk": t_syrk, "syr2k": t_syr2k, "trisolv": t_trisolv,
+}
+
+#: each twin's arguments: M an N x N matrix, v an N vector, L a lower
+#: triangle with N on its diagonal
+TWIN_ARGS = {
+    "2mm": "MMMM", "3mm": "MMMM", "atax": "Mv", "bicg": "Mvv",
+    "mvt": "Mvvvv", "gemm": "MMM", "gemver": "Mvvvvvv", "gesummv": "MMv",
+    "syrk": "MM", "syr2k": "MMM", "trisolv": "Lv",
+}
+
+
+def twin_inputs(name: str, N: int, seed: int = 0) -> list:
+    """Seeded float64 numpy inputs of twin ``name`` at size ``N``."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for kind in TWIN_ARGS[name]:
+        if kind == "v":
+            out.append(rng.standard_normal(N))
+        elif kind == "M":
+            out.append(rng.standard_normal((N, N)))
+        else:
+            out.append(np.tril(rng.standard_normal((N, N))) + N * np.eye(N))
+    return out
+
+
+def twin_numpy(name: str, args) -> tuple:
+    """What twin ``name`` computes, in float64 numpy (trisolv row by
+    row): the oracle the twins are held to."""
+    a, b = 1.5, 1.2
+    if name == "2mm":
+        A, B, C, D = args
+        return ((a * A @ B) @ C + b * D,)
+    if name == "3mm":
+        A, B, C, D = args
+        return ((A @ B) @ (C @ D),)
+    if name == "atax":
+        A, x = args
+        return (A.T @ (A @ x),)
+    if name == "bicg":
+        A, p, r = args
+        return A @ p, A.T @ r
+    if name == "mvt":
+        A, x1, x2, y1, y2 = args
+        return x1 + A @ y1, x2 + A.T @ y2
+    if name == "gemm":
+        A, B, C = args
+        return (a * A @ B + b * C,)
+    if name == "gemver":
+        A, u1, v1, u2, v2, y, z = args
+        A = A + np.outer(u1, v1) + np.outer(u2, v2)
+        x = b * (A.T @ y) + z
+        return A, x, a * (A @ x)
+    if name == "gesummv":
+        A, B, x = args
+        return (a * (A @ x) + b * (B @ x),)
+    if name == "syrk":
+        A, C = args
+        return (a * A @ A.T + b * C,)
+    if name == "syr2k":
+        A, B, C = args
+        return (a * (A @ B.T + B @ A.T) + b * C,)
+    L, bv = args
+    x = np.zeros_like(bv)
+    for i in range(len(bv)):
+        x[i] = (bv[i] - L[i, :i] @ x[:i]) / L[i, i]
+    return (x,)

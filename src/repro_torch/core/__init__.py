@@ -1,7 +1,17 @@
 """EDAN core: eDAG construction, the level kernel's dispatch, the cost
 model, the metrics, the batched §4 simulator, the persistent schedule
 cache and trace store, union suites, object sensitivity and the placement
-search."""
+search.
+
+Three trace frontends over one analysis core:
+  * scalar   (``trace``)   — the paper's Algorithm 1 over instruction
+    streams;
+  * PyTorch  (``fxgraph``) — array-level eDAG of a PyTorch program, from
+    its functionalized pre-dispatch ATen graph;
+  * HLO      (``hlo``)     — a compiled post-SPMD module (collectives are
+    the remote memory accesses), behind the per-axis fabric-latency
+    analysis.
+"""
 from .graph import EDag, IndexOverflowError, MemLayering, concat_edags
 from .plan import ExecPolicy, SweepSpec, replay_mem_budget
 from .cache import NoCache, SetAssociativeCache, make_cache
@@ -25,9 +35,13 @@ from .suite import (EDagSuite, suite_latency_sweep, suite_sweep_grid,
 from . import schedule_cache
 from .trace_store import (save_edag, load_edag, put_trace, get_trace,
                           trace_store_dir)
+from .hlo import (parse_hlo, analyze_collectives, shape_bytes,
+                  hlo_flops_estimate, hlo_hbm_bytes_estimate,
+                  axis_signature_table)
+from .fxgraph import edag_from_fn, edag_from_graph
 from .sensitivity import (AxisSensitivity, axis_latency_sweep,
-                          axis_latency_grid, object_sensitivity,
-                          suite_axis_latency_grid)
+                          axis_latency_grid, collective_sensitivity,
+                          object_sensitivity, suite_axis_latency_grid)
 
 __all__ = [
     "EDag", "IndexOverflowError", "MemLayering", "ExecPolicy", "SweepSpec",
@@ -49,5 +63,8 @@ __all__ = [
     "PlacementReport", "objects_from_edag", "object_class_map",
     "placement_rows", "search_placement", "object_sensitivity",
     "AxisSensitivity", "axis_latency_sweep", "axis_latency_grid",
-    "suite_axis_latency_grid",
+    "suite_axis_latency_grid", "parse_hlo", "analyze_collectives",
+    "shape_bytes", "hlo_flops_estimate", "hlo_hbm_bytes_estimate",
+    "axis_signature_table", "collective_sensitivity", "edag_from_fn",
+    "edag_from_graph",
 ]

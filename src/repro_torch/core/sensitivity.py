@@ -7,27 +7,43 @@ Applies the paper's Eq 3-4 to other kinds of "memory access":
   its access count, ``D_o`` its chained depth from one shared
   ``mem_layers`` pass.  It is the ranking key of the greedy disaggregation
   placement (``placement.search_placement``).
-* ``axis_latency_sweep`` / ``axis_latency_grid`` /
-  ``suite_axis_latency_grid`` — the collectives on one mesh axis of a
-  compiled step: alpha is that axis's per-collective latency and m the
-  number of concurrently progressing collective channels, so
-  ``lambda_axis = (W_ax - D_ax)/m + D_ax`` is d(step_time)/d(alpha_axis).
+* ``collective_sensitivity`` / ``axis_latency_sweep`` /
+  ``axis_latency_grid`` / ``suite_axis_latency_grid`` — the collectives on
+  one mesh axis of a compiled step: alpha is that axis's per-collective
+  latency and m the number of concurrently progressing collective
+  channels, so ``lambda_axis = (W_ax - D_ax)/m + D_ax`` is
+  d(step_time)/d(alpha_axis).
 
-The axis grids are closed-form broadcasts (no level kernel runs, so they
-take no ``plan.ExecPolicy``); their (alpha, m) axes go through the same
-``plan.SweepSpec`` the replay sweeps use.  The tables they read come from
-HLO text in the reference package (``collective_sensitivity``); the port's
-HLO reader is not written yet, so that entry point is not here.
+``collective_sensitivity`` reads a compiled module's HLO text through
+``hlo.analyze_collectives``, whose per-axis depths are ``mem_layers``
+passes of the level kernel.  The axis grids over its table are closed-form
+broadcasts (no level kernel runs, so they take no ``plan.ExecPolicy``);
+their (alpha, m) axes go through the same ``plan.SweepSpec`` the replay
+sweeps use.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Sequence
+from typing import Dict, Sequence, Tuple
 
 import numpy as np
 
+from .hlo import analyze_collectives
 from .metrics import lambda_abs, lambda_rel
 from .plan import SweepSpec
+
+# Default per-collective latencies (seconds) by mesh axis: a tight ring on
+# the innermost axis, a larger ring across it, and a slower fabric between
+# groups of hosts.  These are order-of-magnitude fabric constants, not
+# measurements; they are the reference package's defaults.
+DEFAULT_ALPHAS = {
+    "model": 1e-6,
+    "data": 2e-6,
+    "data+model": 2e-6,
+    "pod": 10e-6,
+    "pod+data": 10e-6,
+    "pod+data+model": 10e-6,
+}
 
 
 @dataclass
@@ -42,6 +58,23 @@ class AxisSensitivity:
     def row(self):
         return dict(axis=self.axis, W=self.W, D=self.D, bytes=self.bytes,
                     lam=self.lam, lam_seconds=self.lam_seconds)
+
+
+def collective_sensitivity(hlo_text: str,
+                           mesh_axis_sizes: Sequence[Tuple[str, int]],
+                           m: int = 4,
+                           alphas: Dict[str, float] = None) -> dict:
+    """Per-axis lambda from a compiled module's HLO text."""
+    alphas = dict(DEFAULT_ALPHAS, **(alphas or {}))
+    stats = analyze_collectives(hlo_text, mesh_axis_sizes)
+    out = {}
+    for axis, st in stats["per_axis"].items():
+        lam = lambda_abs(st["count"], st["depth"], m)
+        a = alphas.get(axis, 5e-6)
+        out[axis] = AxisSensitivity(axis=axis, W=st["count"], D=st["depth"],
+                                    bytes=st["bytes"], lam=lam,
+                                    lam_seconds=lam * a)
+    return dict(per_axis=out, raw=stats)
 
 
 def axis_latency_sweep(per_axis: Dict[str, AxisSensitivity],

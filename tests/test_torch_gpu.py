@@ -638,3 +638,105 @@ def test_format4_warm_replay_from_mapped_entries(card, tmp_path,
     assert sc.stats["disk_hits"] == 4 and sc.stats["record_runs"] == 0
     assert B.stats["cuda_chunks"] > 0 and B.stats["cpu_chunks"] == 0
     assert np.asarray(cold).tobytes() == np.asarray(warm).tobytes()
+
+
+# ------------------------------------------------------------- frontends
+
+def _rel_np(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.max(np.abs(a - b)) / max(np.max(np.abs(b)), 1e-300))
+
+
+@pytest.mark.parametrize("name", list(polybench.TORCH_KERNELS))
+def test_polybench_twins_on_card_equal_host(card, name):
+    args = polybench.twin_inputs(name, 20)
+    fn = polybench.TORCH_KERNELS[name]
+    dev = fn(*[torch.from_numpy(a).to(card) for a in args])
+    host = polybench.twin_numpy(name, args)
+    dev = dev if isinstance(dev, tuple) else (dev,)
+    for d, h in zip(dev, host):
+        assert d.device.type == "cuda"
+        assert _rel_np(d.cpu().numpy(), h) < 1e-12
+
+
+def test_cg_and_lulesh_twins_on_card(card):
+    from repro_torch.apps import hpcg, lulesh
+    _, hist_ref = hpcg.reference_solution(16, 6)
+    b = torch.from_numpy(hpcg.build_problem(16)).to(card)
+    _, hist = hpcg.cg_torch(b, 16, 6)
+    assert hist.device.type == "cuda"
+    assert _rel_np(hist.cpu().numpy(), hist_ref) < 1e-10
+    dev_state, dev_hist = lulesh.run_torch(10, 3, device=card)
+    host_state, host_hist = lulesh.run_torch(10, 3, device="cpu")
+    ref_state, ref_hist = lulesh.lulesh_numpy(10, 3)
+    for d, h, r in zip(dev_state + (dev_hist,), host_state + (host_hist,),
+                       ref_state + (ref_hist,)):
+        assert _rel_np(d.cpu().numpy(), h.numpy()) < 1e-12
+        assert _rel_np(d.cpu().numpy(), r) < 1e-12
+    # with no device named, the twin takes the card
+    assert lulesh.run_torch(3, 1)[1].device.type == "cuda"
+
+
+@pytest.mark.parametrize("name", ["gemm", "trisolv"])
+def test_twin_edag_is_device_independent(card, name):
+    from repro_torch.core import edag_from_fn
+    args = polybench.twin_inputs(name, 12)
+    graphs = []
+    for device in ("cuda", "cpu", "meta"):
+        g = edag_from_fn(polybench.TORCH_KERNELS[name], *[
+            torch.tensor(a, dtype=torch.float32, device=device)
+            for a in args])
+        g.trace_digest()
+        graphs.append((g.trace_digest(), list(g.labels()), g.cost.tolist(),
+                       g.nbytes.tolist()))
+    assert graphs[0] == graphs[1] == graphs[2]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("slot", [False, True])
+def test_kernel_bitwise_on_cg_twin_plan(card, dtype, slot):
+    """K1 against its plain version on the CG twin's eDAG (n=6, 3
+    iterations) and its replay plan (m=4, 8 ALU slots)."""
+    from repro_torch.apps import hpcg
+    from repro_torch.core import edag_from_fn
+    from repro_torch.core import scheduler as S
+    g = edag_from_fn(lambda b: hpcg.cg_torch(b, 6, 3),
+                     torch.empty(216, device="meta"))
+    g._finalize()
+    _, plan = S._record_plan(g, g._sim_lists(), 4, 8, 50.0, 1.0,
+                             persist=False)
+    lv = plan.lv if slot else g._level_csr()
+    rows = lv.n + (1 if slot else 0)
+    base = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (rows, 13)) * 100.0).to(card, dtype)
+    if slot:
+        base[-1] = 0
+    for want_r in (False, True):
+        Fk, Fp = base.clone(), base.clone()
+        Rk = torch.zeros_like(base) if want_r else None
+        Rp = torch.zeros_like(base) if want_r else None
+        n0 = level_step.launches
+        level_step(lv, Fk, clamp=True, R_out=Rk)
+        assert level_step.launches > n0
+        level_step_plain(lv, Fp, clamp=True, R_out=Rp)
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(Fk), _bits(Fp))
+        if want_r:
+            assert torch.equal(_bits(Rk), _bits(Rp))
+
+
+def test_collective_sensitivity_on_card_equals_expected(card):
+    import gzip
+    import json
+    from pathlib import Path
+    from repro_torch.core import collective_sensitivity
+    cfg = Path(polybench.__file__).resolve().parents[1] / "configs"
+    want = json.loads((cfg / "frontend_expected.json").read_text())["hlo"]
+    text = gzip.decompress((cfg / "hlo" / "train.hlo.gz").read_bytes())
+    n0 = level_step.launches
+    got = collective_sensitivity(text.decode(), [("data", 2), ("model", 4)],
+                                 m=4)
+    assert level_step.launches > n0
+    rows = {k: v.row() for k, v in got["per_axis"].items()}
+    assert json.loads(json.dumps(dict(per_axis=rows, raw=got["raw"]))) == \
+        want["train"]["collective_sensitivity"]
