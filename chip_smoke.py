@@ -37,11 +37,13 @@ Phases, each timed; any failure ends the run with a non-zero exit:
              its plain version in float32 and bf16 (``ATT_CASES``: the
              served models' prefill shapes, zamba2's shared attention,
              heads of 96, 8 and 40, a window, non-causal T=128 over S=384,
-             a ragged T=200): finite, within ``ATT_TOL``, and in bf16
+             seamless-m4t's non-causal encoder, a ragged T=200): finite,
+             within ``ATT_TOL``, and in bf16
              within ``ATT_ROUND_P_TOL`` of the plain version that rounds P
-             as the kernel does; and its times at the served shapes (CUDA
-             events, wrapper included, and the kernel's own device time
-             from ``torch.profiler``) beside
+             as the kernel does; and its times at the served shapes
+             (seamless-m4t's encoder, decoder and cross-attention over 384
+             frames among them; CUDA events, wrapper included, and the
+             kernel's own device time from ``torch.profiler``) beside
              the plain version's and one ``scaled_dot_product_attention``
              call's.
 4. main    — the paper runner (``repro_torch.launch.paper``) at the paper's
@@ -72,24 +74,29 @@ Phases, each timed; any failure ends the run with a non-zero exit:
              solve at n=8, with ``oracle <= greedy <= all_remote``.  Prints
              seconds, K1's grids, levels and calls, and µs per level for
              the union and the member loop.
-6. fixture — the serving path at five small fixture configs (float32) with
+6. fixture — the serving path at six small fixture configs (float32) with
              seeded numpy weights (rwkv6, zamba2, qwen3, granite-moe with
-             token drops, internvl2 with its 256 patch positions): greedy
+             token drops, internvl2 with its 256 patch positions,
+             seamless-m4t over zero frames): greedy
              tokens equal and prefill logits close to
              ``src/repro_torch/configs/serve_expected.json`` (the JAX
              package's results).
 7. serve   — the serving launcher (``repro_torch.launch.serve.run``) at
              full width: rwkv6-7b, zamba2-7b, qwen3-0.6b,
-             granite-moe-1b-a400m and internvl2-2b (bf16 compute, float32
-             master weights from a seed), 4 slots, 8 requests of 128 text
-             tokens (internvl2: after 256 patch positions), 16 tokens
-             each.  Every logit finite, each kernel launched exactly as
-             often as the model's layers say (K4 once per attention layer
-             per prefill, never in decode), one prefill and one decode
+             granite-moe-1b-a400m, internvl2-2b and seamless-m4t-large-v2
+             (bf16 compute, float32 master weights from a seed), 4 slots,
+             8 requests of 128 text tokens (internvl2: after 256 patch
+             positions; seamless: over 128 zero frames), 16 tokens each.
+             Every logit finite, each kernel launched exactly as often as
+             the model's layers say (K4 once per attention layer per
+             prefill, seamless 72 times: 24 encoder, 24 decoder and 24
+             cross layers; never in decode), one prefill and one decode
              step through the kernels held block by block to the plain
-             versions' (the recurrent states to the sequential form);
-             prefill ms, decode ms per step, tok/s, peak memory and the
-             profile's busy and idle share.
+             versions' (the recurrent states to the sequential form), and
+             for seamless one prefill of 128 tokens over 384 seeded frames
+             (the cross-attention with T != S) held the same way; prefill
+             ms, decode ms per step, tok/s, peak memory and the profile's
+             busy and idle share.
 8. persist — the persistent schedule cache and the trace store at
              ``benchmarks/perf_core.py::bench_schedule_cache``'s and
              ``perf_scale.py``'s sizes, against
@@ -133,7 +140,23 @@ Phases, each timed; any failure ends the run with a non-zero exit:
              package's, no replay chunk on the host; (d) K1 bitwise
              against its plain version on the CG twin's DAG and its
              replay plan (m=4, 8 ALU slots).
-11. report — the card line, the ``{"kernels": [...]}`` line, and last the
+11. zoo    — model-zoo tracing (``repro_torch.models.tracing``) against
+             ``src/repro_torch/configs/zoo_expected.json``: (a) each ``ZOO``
+             config at the reduced width, prefill and decode, and the
+             train phase of qwen3-0.6b and seamless-m4t-large-v2, traced
+             from ``meta`` inputs into a trace store, each eDAG the
+             recorded one (vertices, edges, levels, seconds), and
+             qwen3-0.6b's decode at full width for its seconds; (b)
+             ``model_grid_report`` over the six prefill traces (13 alphas x
+             m (2, 4, 8) x (0, 8) ALU slots) under ``("cuda", "float32")``,
+             every value the JAX package's analysis of the same eDAGs, no
+             replay chunk on the host; (c) model requests through the
+             ``AnalysisService`` — a clean one and a union batch of three
+             on rung 0, a transient and a hard ``trace-model`` fault —
+             every outcome and report the fixture's; no model kernel
+             launched by tracing; (d) K1 bitwise against its plain version
+             on seamless-m4t's prefill replay plan (m=4, 8 ALU slots).
+12. report — the card line, the ``{"kernels": [...]}`` line, and last the
              ``{"ok": true, "device": {...}}`` line.
 
 Usage: python3 chip_smoke.py   (from the root of a checkout, one card)
@@ -830,16 +853,22 @@ ATT_CASES = (
     ("hd=96 (phi3)", 2, 128, 128, 32, 32, 96, True, 0),
     ("window 64", 2, 256, 256, 16, 8, 128, True, 64),
     ("non-causal T=128 S=384", 2, 128, 384, 16, 16, 64, False, 0),
+    ("seamless-m4t-large-v2 encoder", 1, 128, 128, 16, 16, 64, False, 0),
     ("ragged T=200", 2, 200, 200, 16, 8, 128, True, 0),
     ("hd=8", 2, 128, 128, 16, 8, 8, True, 0),
     ("hd=40 window 48", 2, 200, 200, 16, 8, 40, True, 48),
 )
-#: the prefill shapes of the served models, one request: (label, T, H, KV,
-#: hd), bf16, causal
-ATT_SERVE_SHAPES = (("qwen3-0.6b", 128, 16, 8, 128),
-                    ("granite-moe-1b-a400m", 128, 16, 8, 64),
-                    ("internvl2-2b", 384, 16, 8, 128),
-                    ("zamba2-7b", 128, 32, 32, 112))
+#: the prefill shapes of the served models, one request: (label, T, S, H,
+#: KV, hd, causal), bf16; seamless-m4t-large-v2's encoder (frames as many
+#: as the prompt's tokens, as the engine gives them), decoder, and
+#: cross-attention over 384 frames (T != S, as ``prefill_fn`` takes it)
+ATT_SERVE_SHAPES = (("qwen3-0.6b", 128, 128, 16, 8, 128, True),
+                    ("granite-moe-1b-a400m", 128, 128, 16, 8, 64, True),
+                    ("internvl2-2b", 384, 384, 16, 8, 128, True),
+                    ("zamba2-7b", 128, 128, 32, 32, 112, True),
+                    ("seamless encoder", 128, 128, 16, 16, 64, False),
+                    ("seamless decoder", 128, 128, 16, 16, 64, True),
+                    ("seamless cross Te=384", 128, 384, 16, 16, 64, False))
 BF16_OPS_PER_S = 989e12            # H100 SXM dense bf16 tensor cores
 #: keys per KV tile of K4's kernels (``csrc/flash_attention.cu``), by dtype
 ATT_BLOCK_KV = {"float32": 64, "bfloat16": 128}
@@ -994,24 +1023,27 @@ def time_attention() -> dict:
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ref import flash_attention_plain
     out = {}
-    for label, T, H, KV, hd in ATT_SERVE_SHAPES:
-        q, k, v = att_inputs(1, T, T, H, KV, hd, torch.bfloat16, seed=9)
+    for label, T, S, H, KV, hd, causal in ATT_SERVE_SHAPES:
+        q, k, v = att_inputs(1, T, S, H, KV, hd, torch.bfloat16, seed=9)
         qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
 
         def sdpa():
-            return F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
-                                                  enable_gqa=True)
-        lib_err = rel_err(sdpa().transpose(1, 2), flash_attention(q, k, v))
+            return F.scaled_dot_product_attention(
+                qh, kh, vh, is_causal=causal, enable_gqa=True)
+
+        def kernel():
+            return flash_attention(q, k, v, causal=causal)
+        lib_err = rel_err(sdpa().transpose(1, 2), kernel())
         if lib_err > SERVE_TOL:
             raise SystemExit(f"scaled_dot_product_attention disagrees with "
                              f"the kernel at {label}: {lib_err:.3e}")
-        bound, by = attention_bound(1, T, T, H, KV, hd, True, 0, 2)
+        bound, by = attention_bound(1, T, S, H, KV, hd, causal, 0, 2)
         out[label] = dict(
-            T=T, H=H, KV=KV, hd=hd, dtype="bfloat16",
-            ms=time_calls(lambda: flash_attention(q, k, v), 100),
-            device_us=device_us(lambda: flash_attention(q, k, v)),
+            T=T, S=S, H=H, KV=KV, hd=hd, causal=causal, dtype="bfloat16",
+            ms=time_calls(kernel, 100), device_us=device_us(kernel),
             plain_ms=time_calls(lambda: flash_attention_plain(
-                q, k, v, block_kv=ATT_BLOCK_KV["bfloat16"]), 5),
+                q, k, v, causal=causal,
+                block_kv=ATT_BLOCK_KV["bfloat16"]), 5),
             library_ms=time_calls(sdpa, 100),
             library_device_us=device_us(sdpa), library_rel_err=lib_err,
             bound_ms=bound, bound_by=by)
@@ -1992,6 +2024,136 @@ def frontend_kernel_checks(size: dict) -> tuple:
     return n_cases, err
 
 
+# --------------------------------------------------------------- zoo phase
+
+def zoo_traces(c: dict, expected: dict) -> tuple:
+    """(a) Every reduced model trace of the fixture (each ``ZOO`` config's
+    prefill and decode, the train phase of ``c["train"]``) through
+    ``trace_model`` into the phase's trace store: vertices, edges, levels
+    and seconds, each trace the recorded one; then the full-width trace
+    ``c["full"]``, timed and held to its record."""
+    from zoo_expected import summary    # as the fixture was written
+    from repro_torch.models import tracing
+    jobs = [(n, ph) for n in c["zoo"].values() for ph in ("prefill", "decode")]
+    jobs += [(n, "train") for n in c["train"]]
+    graphs, rows = {}, {}
+    for name, phase in jobs:
+        key = f"{name}:{phase}"
+        t0 = time.perf_counter()
+        g = tracing.trace_model(name, phase)
+        secs = time.perf_counter() - t0
+        got = summary(g)
+        if got != expected["port_traces"][key]:
+            raise SystemExit(f"trace {key}: {got} is not the recorded "
+                             f"{expected['port_traces'][key]}")
+        graphs[key] = g
+        rows[key] = dict(vertices=got["vertices"], edges=got["edges"],
+                         levels=int(g._level_csr().n_levels), trace_s=secs)
+        print(f"  zoo {key}: {json.dumps(rows[key])}", flush=True)
+    t0 = time.perf_counter()
+    full = tracing.trace_model(*c["full"], reduced=False, use_store=False)
+    secs = time.perf_counter() - t0
+    got = summary(full)
+    if got != expected["full_trace"]:
+        raise SystemExit(f"full-width trace {c['full']}: {got} is not the "
+                         f"recorded {expected['full_trace']}")
+    rows[":".join(c["full"]) + ":full"] = dict(
+        vertices=got["vertices"], edges=got["edges"],
+        levels=int(full._level_csr().n_levels), trace_s=secs)
+    print(f"  zoo {c['full']} at full width: {got['vertices']} vertices "
+          f"in {secs:.2f} s", flush=True)
+    return graphs, rows
+
+
+def zoo_service(c: dict, want: dict) -> dict:
+    """(c) The model requests through the port's ``AnalysisService``: a
+    clean one and a union batch of three on rung 0 ``("cuda", "float32")``,
+    a transient and a hard ``trace-model`` fault; every outcome the JAX
+    package's and every report its analysis of the same eDAG."""
+    from repro_torch.core import backend as B
+    from repro_torch.serve import AnalysisRequest, AnalysisService, faults
+    sv = c["service"]
+
+    def requests(names, **kw):
+        return [AnalysisRequest(config=n, kind="model", phase=sv["phase"],
+                                alphas=tuple(sv["alphas"]),
+                                ms=tuple(sv["ms"]),
+                                compute_slots=tuple(sv["compute_slots"]),
+                                **kw) for n in names]
+
+    def run(reqs, fault=None):
+        faults.reset()
+        if fault is not None:
+            faults.install("trace-model", "io", **fault)
+        try:
+            return AnalysisService(start=False, backoff_s=0.0).process(reqs)
+        finally:
+            faults.reset()
+
+    one, union = sv["union"][:1], sv["union"]
+    B.reset_stats()
+    with k1_counts() as k1:
+        clean, batch = run(requests(one)), run(requests(union))
+    check_results(clean, want["clean"], want["reports"], "model request")
+    check_results(batch, want["union"], want["reports"], "model union")
+    off = [r.rid for r in clean + batch if (r.policy["backend"],
+           r.policy["replay_dtype"], r.policy["demotions"]) !=
+           ("cuda", "float32", 0)]
+    if off or B.stats["cuda_chunks"] <= 0 or B.stats["cpu_chunks"] != 0:
+        raise SystemExit(f"model requests {off} off rung 0, replays "
+                         f"{dict(B.stats)}")
+    out = dict(clean=dict(k1.row(), replay=B.stats.snapshot()))
+    transient = run(requests(one), dict(count=1))
+    check_results(transient, want["transient"], want["reports"],
+                  "transient trace-model fault")
+    hard = run(requests(one, max_retries=sv["max_retries_hard"]), {})
+    check_results(hard, want["hard"], want["reports"],
+                  "hard trace-model fault")
+    if hard[0].error["stage"] != "trace-model":
+        raise SystemExit(f"hard trace-model fault: {hard[0].error}")
+    out.update(transient_retries=transient[0].retries,
+               hard_error=hard[0].error["code"])
+    print(f"  zoo service: {json.dumps(out)}", flush=True)
+    return out
+
+
+def run_zoo(expected: dict) -> tuple:
+    """Phase "zoo": the model-zoo tracing path on the card against
+    ``configs/zoo_expected.json``: (a) ``zoo_traces``; (b)
+    ``model_grid_report`` over the six prefill traces (from the phase's
+    trace store), 13 alphas x m (2, 4, 8) x (0, 8) ALU slots under
+    ``("cuda", "float32")``, every value the JAX package's analysis of the
+    same eDAGs, no replay chunk on the host; (c) ``zoo_service``.  Returns
+    (the phase's rows, the traces)."""
+    from repro_torch.core import backend as B
+    from repro_torch.core.plan import ExecPolicy
+    from repro_torch.models import tracing
+    c = expected["config"]
+    work = scratch_dir("zoo")
+    try:
+        with env_vars(EDAN_TRACE_STORE=str(work / "traces")):
+            graphs, rows = zoo_traces(c, expected)
+            grid = c["grid"]
+            B.reset_stats()
+            with k1_counts() as k1:
+                rep = tracing.model_grid_report(
+                    expected["grid"]["names"], grid["alphas"], "prefill",
+                    ms=tuple(grid["ms"]),
+                    compute_slots=tuple(grid["compute_slots"]),
+                    policy=ExecPolicy.resolve(backend="cuda",
+                                              replay_dtype="float32"))
+            check_equal(rep, expected["grid"], "model grid report")
+            if B.stats["cuda_chunks"] <= 0 or B.stats["cpu_chunks"] != 0:
+                raise SystemExit(f"model grid off the card: {dict(B.stats)}")
+            out = dict(traces=rows, grid=dict(k1.row(),
+                                              replay=B.stats.snapshot()))
+            print(f"  zoo grid: {json.dumps(out['grid'])}", flush=True)
+            out["service"] = zoo_service(c, expected["service"])
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return out, graphs
+
+
 # ------------------------------------------------------ serving phases
 
 def kernel_wrappers() -> dict:
@@ -2077,10 +2239,11 @@ class finite_watch:
 
 
 class block_compare:
-    """Within the block every ``block_apply`` of ``module`` (``rwkv6``,
-    ``mamba2`` or ``transformer``) runs twice on the same inputs, through
-    the kernels and through the plain versions; the kernels' result goes
-    on.  Records the largest relative difference of the blocks' output
+    """Within the block every block function of ``module`` (the
+    ``block_apply`` of ``rwkv6``, ``mamba2`` or ``transformer``;
+    ``encdec``'s ``encoder_block`` and ``decoder_block``) runs twice on the
+    same inputs, through the kernels and through the plain versions; the
+    kernels' result goes on.  Records the largest relative difference of the blocks' output
     hidden states and, for a recurrent block, of their recurrent states.
     The recurrent states are held to the sequential form (a third run of
     the block), the exact recurrence: the chunked plain form's own
@@ -2089,37 +2252,61 @@ class block_compare:
     chunked form's distances to it are recorded too.  (Comparing only the
     final logits of the two paths measures the random-init model's
     sensitivity instead: in bf16 it amplifies a rounding flip from layer
-    to layer.)"""
+    to layer.)  With ``against_f32`` each block also runs in float32 (its
+    bf16 inputs upcast, the plain versions): the kernels' and the plain
+    path's distances to it are recorded, and how far the first exceeds
+    the second."""
 
-    def __init__(self, module, recurrent: bool):
+    def __init__(self, module, recurrent: bool, against_f32: bool = False):
         self.module, self.recurrent = module, recurrent
+        self.against_f32 = against_f32
+        self.names = [n for n in ("block_apply", "encoder_block",
+                                  "decoder_block") if hasattr(module, n)]
 
     def __enter__(self):
-        self.saved = self.module.block_apply
+        import torch
+        self.saved = {n: getattr(self.module, n) for n in self.names}
         self.blocks, self.worst_h, self.worst_state = 0, 0.0, 0.0
         self.worst_state_chunked, self.chunked_vs_seq = 0.0, 0.0
+        self.worst_k_f32, self.worst_p_f32, self.worst_excess = 0.0, 0.0, 0.0
 
-        def both(*args):
-            out_k = self.saved(*args)
-            with plain_kernels():
-                out_p = self.saved(*args)
-            self.blocks += 1
-            self.worst_h = max(self.worst_h, rel_err(out_k[0], out_p[0]))
-            if self.recurrent:
-                with plain_kernels(sequential=True):
-                    out_s = self.saved(*args)
-                Sk, Sp, Ss = out_k[1]["S"], out_p[1]["S"], out_s[1]["S"]
-                self.worst_state = max(self.worst_state, rel_err(Sk, Ss))
-                self.worst_state_chunked = max(self.worst_state_chunked,
-                                               rel_err(Sk, Sp))
-                self.chunked_vs_seq = max(self.chunked_vs_seq,
-                                          rel_err(Sp, Ss))
-            return out_k
-        self.module.block_apply = both
+        def f32(a):
+            return (a.float() if isinstance(a, torch.Tensor) and
+                    a.dtype == torch.bfloat16 else a)
+
+        def both(fn):
+            def run(*args):
+                out_k = fn(*args)
+                with plain_kernels():
+                    out_p = fn(*args)
+                self.blocks += 1
+                self.worst_h = max(self.worst_h, rel_err(out_k[0], out_p[0]))
+                if self.against_f32:
+                    with plain_kernels():
+                        out_f = fn(*map(f32, args))
+                    ek, ep = (rel_err(out_k[0], out_f[0]),
+                              rel_err(out_p[0], out_f[0]))
+                    self.worst_k_f32 = max(self.worst_k_f32, ek)
+                    self.worst_p_f32 = max(self.worst_p_f32, ep)
+                    self.worst_excess = max(self.worst_excess, ek - ep)
+                if self.recurrent:
+                    with plain_kernels(sequential=True):
+                        out_s = fn(*args)
+                    Sk, Sp, Ss = out_k[1]["S"], out_p[1]["S"], out_s[1]["S"]
+                    self.worst_state = max(self.worst_state, rel_err(Sk, Ss))
+                    self.worst_state_chunked = max(self.worst_state_chunked,
+                                                   rel_err(Sk, Sp))
+                    self.chunked_vs_seq = max(self.chunked_vs_seq,
+                                              rel_err(Sp, Ss))
+                return out_k
+            return run
+        for n, fn in self.saved.items():
+            setattr(self.module, n, both(fn))
         return self
 
     def __exit__(self, *exc):
-        self.module.block_apply = self.saved
+        for n, fn in self.saved.items():
+            setattr(self.module, n, fn)
         return False
 
 
@@ -2203,7 +2390,8 @@ def run_fixtures(expected: dict) -> list:
 SERVED = (("rwkv6-7b", "wkv6", 128, 256), ("zamba2-7b", "ssd", 128, 256),
           ("qwen3-0.6b", None, 128, 256),
           ("granite-moe-1b-a400m", None, 128, 256),
-          ("internvl2-2b", None, 128, 512))
+          ("internvl2-2b", None, 128, 512),
+          ("seamless-m4t-large-v2", None, 128, 256))
 KERNEL_NAMES = {"wkv6": "wkv6_kernel", "ssd": "ssd_kernel",
                 "flash_attention": "flash_attention_"}
 
@@ -2219,21 +2407,28 @@ def prompt_tokens(cfg, prompt_len: int, seed: int):
     return torch.tensor([toks], device="cuda")
 
 
+def attention_calls(cfg) -> int:
+    """K4's launches in one prefill: once per attention layer; zamba2 once
+    per shared-attention application; an encoder-decoder once per encoder
+    layer and twice per decoder layer (self and cross)."""
+    from repro_torch.models import zamba2
+    if cfg.family == "hybrid":
+        return zamba2.n_attn_applications(cfg)
+    if cfg.family == "encdec":
+        return cfg.n_enc_layers + 2 * cfg.n_layers
+    return cfg.n_layers
+
+
 def expected_launches(cfg, kernel, st: dict) -> dict:
     """Each kernel's launches in one serving run: a recurrence kernel once
-    per layer per prefill and decode step; K4 once per attention layer
-    (zamba2: per shared-attention application) per prefill, never in a
-    decode step; K1 never."""
-    from repro_torch.models import zamba2
+    per layer per prefill and decode step; K4 ``attention_calls`` times
+    per prefill, never in a decode step; K1 never."""
     calls = st["prefills"] + st["decode_steps"]
     want = dict.fromkeys(read_counts(), 0)
     if kernel:
         want[kernel] = cfg.n_layers * calls
-    if cfg.family == "hybrid":
-        want["flash_attention"] = zamba2.n_attn_applications(cfg) * \
-            st["prefills"]
-    elif kernel is None:
-        want["flash_attention"] = cfg.n_layers * st["prefills"]
+    if cfg.family == "hybrid" or kernel is None:
+        want["flash_attention"] = attention_calls(cfg) * st["prefills"]
     return want
 
 
@@ -2275,6 +2470,61 @@ def profile_serve(api, params, prompt, max_seq: int) -> dict:
                 top=sorted(dev, key=lambda kt: -kt[1])[:6])
 
 
+#: frames of the direct encoder-decoder prefill, beside ``prompt_len``
+#: tokens: the cross-attention runs T != S inside the model
+CROSS_FRAMES = 384
+
+
+def encdec_cross_check(api, params, prompt_len: int) -> dict:
+    """One ``prefill_fn`` call of the full-width encoder-decoder with
+    ``CROSS_FRAMES`` seeded standard-normal frames and ``prompt_len``
+    tokens (the engine always gives as many frames as tokens): every K4
+    call (encoder T = S = 384, decoder causal T = S = 128, cross T = 128
+    over S = 384) held to ``attention_ref`` within SERVE_TOL, finite
+    logits, K4 launched ``attention_calls`` times, and every block held to
+    a float32 run of it: the kernels' distance to it at most SERVE_TOL
+    beyond the plain bf16 path's.  (On such frames the random-init
+    encoder's softmax saturates, so its bf16 blocks are ~1e-1 from float32
+    on either path, and the two bf16 paths ~1e-2 apart: a rounding flip of
+    an attention output moves a block by more than 2^-6 of its largest
+    value, where the engine's zero frames do not.)"""
+    import torch
+    from repro_torch.models import encdec
+    cfg = api.cfg
+    g = torch.Generator(device="cuda").manual_seed(3)
+    batch = dict(tokens=prompt_tokens(cfg, prompt_len, seed=3),
+                 frame_embeds=torch.randn((1, CROSS_FRAMES, cfg.d_model),
+                                          generator=g, device="cuda"))
+    fa = kernel_wrappers()["flash_attention"]
+    n0 = fa.launches
+    with torch.inference_mode(), attention_compare() as att, \
+            block_compare(encdec, False, against_f32=True) as cmp:
+        logits, state = api.prefill_fn(params, batch, cache_len=2 * prompt_len)
+    torch.cuda.synchronize()
+    launches = fa.launches - n0     # the plain runs launch nothing
+    want = attention_calls(cfg)
+    if (not torch.isfinite(logits).all() or launches != want or
+            att.calls != want or att.worst > SERVE_TOL or
+            cmp.blocks != cfg.n_enc_layers + cfg.n_layers or
+            cmp.worst_excess > SERVE_TOL or
+            tuple(state["xk"].shape[2:4]) != (CROSS_FRAMES, cfg.n_kv_heads)):
+        raise SystemExit(
+            f"encdec prefill over {CROSS_FRAMES} frames: {launches} K4 "
+            f"launches and {att.calls} calls (expected {want}) within "
+            f"{att.worst:.3e}, {cmp.blocks} blocks: kernels "
+            f"{cmp.worst_k_f32:.3e} and plain {cmp.worst_p_f32:.3e} from "
+            f"float32 (excess {cmp.worst_excess:.3e} > {SERVE_TOL:.3e}?), "
+            f"cross cache {tuple(state['xk'].shape)}")
+    out = dict(frames=CROSS_FRAMES, tokens=prompt_len, k4_launches=launches,
+               attention_rel_err=att.worst, block_h_rel_err=cmp.worst_h,
+               block_kernel_vs_f32=cmp.worst_k_f32,
+               block_plain_vs_f32=cmp.worst_p_f32,
+               block_excess_over_plain=cmp.worst_excess)
+    print(f"  encdec prefill, {CROSS_FRAMES} frames x {prompt_len} tokens: "
+          f"{json.dumps(out)}", flush=True)
+    return out
+
+
 def serve_full_width(name: str, kernel, prompt_len: int, max_seq: int,
                      card: str) -> dict:
     """``launch.serve.run`` at the full config of ``name`` (bf16 compute,
@@ -2293,7 +2543,8 @@ def serve_full_width(name: str, kernel, prompt_len: int, max_seq: int,
     import torch
     from repro_torch.configs import ARCHS
     from repro_torch.launch import serve
-    from repro_torch.models import get_model, mamba2, rwkv6, transformer
+    from repro_torch.models import (encdec, get_model, mamba2, rwkv6,
+                                    transformer)
     from repro_torch.serve import prefill_batch
     cfg = ARCHS[name]
     api = get_model(cfg)
@@ -2323,7 +2574,8 @@ def serve_full_width(name: str, kernel, prompt_len: int, max_seq: int,
         raise SystemExit(f"serve {name}: {res['requests']} requests, "
                          f"{res['tokens']} tokens")
     # one prefill and one decode step, block by block: kernels vs plain
-    module = {"wkv6": rwkv6, "ssd": mamba2}.get(kernel, transformer)
+    module = {"wkv6": rwkv6, "ssd": mamba2}.get(
+        kernel, encdec if cfg.family == "encdec" else transformer)
     prompt = prompt_tokens(cfg, prompt_len, seed=1)
     batch = prefill_batch(cfg, prompt)
     with torch.inference_mode():
@@ -2338,8 +2590,10 @@ def serve_full_width(name: str, kernel, prompt_len: int, max_seq: int,
     if not (torch.isfinite(lk).all() and torch.isfinite(step).all()):
         raise SystemExit(f"serve {name}: non-finite logits")
     want_att = want["flash_attention"] // st["prefills"]
-    # a transformer's decode step calls no block_apply: it runs no kernel
-    want_blocks = (2 if kernel else 1) * cfg.n_layers
+    # a transformer's or an encoder-decoder's decode step calls no block
+    # function: it runs no kernel
+    want_blocks = (2 if kernel else 1) * cfg.n_layers + \
+        (cfg.n_enc_layers if cfg.family == "encdec" else 0)
     if (att.calls != want_att or att.worst > SERVE_TOL or
             cmp.blocks != want_blocks or cmp.worst_h > SERVE_TOL or
             cmp.worst_state > REC_TOL):
@@ -2351,6 +2605,8 @@ def serve_full_width(name: str, kernel, prompt_len: int, max_seq: int,
             f"{SERVE_TOL:.3e}?), recurrent state vs the sequential form "
             f"{cmp.worst_state:.3e} (> {REC_TOL}?)")
     err = rel_err(lk, lp)
+    cross = (encdec_cross_check(api, params, prompt_len)
+             if cfg.family == "encdec" else None)
     prof = profile_serve(api, params, prompt_tokens(cfg, prompt_len, seed=2),
                          max_seq)
     out = dict(
@@ -2366,7 +2622,7 @@ def serve_full_width(name: str, kernel, prompt_len: int, max_seq: int,
         block_state_rel_err=cmp.worst_state,
         block_state_rel_err_vs_chunked=cmp.worst_state_chunked,
         block_state_chunked_vs_sequential=cmp.chunked_vs_seq,
-        logits_rel_err_vs_plain=err, profile=prof,
+        logits_rel_err_vs_plain=err, profile=prof, cross_t_ne_s=cross,
         peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30, card=card)
     print(f"  serve {name}: prefill {out['prefill_ms']:.2f} ms/request, "
           f"decode {out['decode_ms_per_step']:.2f} ms/step, "
@@ -2575,6 +2831,28 @@ def main() -> int:
         max_err = max(max_err, fe_err)
         print(f"  frontend launches: {frontend_launches}", flush=True)
 
+    zoo_expected = json.loads((SRC / "repro_torch" / "configs" /
+                               "zoo_expected.json").read_text())
+    with phase("zoo"):
+        reset_counts()
+        t_zoo = time.perf_counter()
+        zoo_res, zoo_graphs = run_zoo(zoo_expected)
+        zoo_res["seconds"] = time.perf_counter() - t_zoo
+        zoo_counts = read_counts()
+        launches_zoo = zoo_counts.pop("level_step")
+        if launches_zoo <= 0 or any(zoo_counts.values()):
+            raise SystemExit(f"the zoo path launched level_step "
+                             f"{launches_zoo} times and the model kernels "
+                             f"{zoo_counts} (tracing runs none)")
+        zk = "seamless-m4t-large-v2:prefill"
+        zoo_cases, zoo_err = check_kernel(
+            replay_plan(zoo_graphs[zk], 4, 8).lv, 13, 31,
+            f"{zk} replay m=4 cs=8")
+        n_cases += zoo_cases
+        max_err = max(max_err, zoo_err)
+        print(f"  zoo launches: {launches_zoo}; K1 vs plain on the {zk} "
+              f"replay plan: {zoo_cases} cases bitwise", flush=True)
+
     with phase("report"):
         m = meas["gemm_replay_f32"]
         kern = dict(
@@ -2599,6 +2877,7 @@ def main() -> int:
             launches_persist=persist_launches,
             launches_service=service_launches,
             launches_frontend=frontend_launches,
+            launches_zoo=launches_zoo,
             plain_ms_union=union_meas["narrow"]["union"]["plain_ms"],
             library_ms_union=union_meas["narrow"]["union"]["library_ms"],
             plain_ms_union_wide=union_meas["wide"]["union"]["plain_ms"],
@@ -2662,6 +2941,7 @@ def main() -> int:
         print(f"  serve: {json.dumps(served)}", flush=True)
         print(f"  fixtures: {json.dumps(fixtures)}", flush=True)
         print(f"  frontend: {json.dumps(frontend_res)}", flush=True)
+        print(f"  zoo: {json.dumps(zoo_res)}", flush=True)
         print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
     # the last three lines: the card, the kernels, the verdict
     print(card_line(), flush=True)

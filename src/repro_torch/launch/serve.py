@@ -7,15 +7,17 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \\
       --no-reduced                     # full width, on the card
 
-Archs: rwkv6-7b, zamba2-7b and the transformer families (qwen3-0.6b,
+Archs: rwkv6-7b, zamba2-7b, the transformer families (qwen3-0.6b,
 granite-moe-1b-a400m, internvl2-2b, phi3-mini-3.8b; mixtral-8x7b and the
 deepseek models need more than one card's memory with float32 masters at
-full width).  A vlm's prompts are ``n_patches`` placeholder tokens (0),
-which the patch prefix replaces, then ``prompt_len`` text tokens.
+full width) and seamless-m4t-large-v2 (encoder-decoder, over zero frame
+embeddings as long as the prompt).  A vlm's prompts are ``n_patches``
+placeholder tokens (0), which the patch prefix replaces, then
+``prompt_len`` text tokens.
 
 The device comes from ``core.backend.select_backend`` (``cuda`` unless
 ``$EDAN_TORCH_BACKEND`` or ``device`` says otherwise; ``cuda`` without a
-card raises).  Families not ported yet raise ``NotImplementedError``.
+card raises).
 """
 from __future__ import annotations
 

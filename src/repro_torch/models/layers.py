@@ -1,6 +1,6 @@
-"""Shared model layers of the serving path: RMSNorm, RoPE, SwiGLU, the
-embedding lookup and GQA attention (the chunked online-softmax reference
-and the decode path), as plain PyTorch ops.
+"""Shared model layers: RMSNorm, RoPE, SwiGLU, the embedding lookup, GQA
+attention (the chunked online-softmax reference and the decode path) and
+the training loss (``cross_entropy``), as plain PyTorch ops.
 
 They mirror the reference package's ``models/layers.py`` step by step,
 dtypes included: RMSNorm in float32, attention scores and outputs
@@ -123,3 +123,22 @@ def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor, dtype):
     """Rows of the embedding table, cast to ``dtype``: the same rows the
     reference's one-hot contraction gives."""
     return embed[tokens].to(dtype)
+
+
+def cross_entropy(logits, labels, z_loss: float = 0.0, mask=None):
+    """Token-mean cross entropy with an optional z-loss, in float32;
+    logits (B,T,V), labels (B,T), mask (B,T) or None.  The label logit is
+    taken with the reference's compare-and-select reduction (labels ==
+    iota, ``where``, sum) rather than a gather, so the traced graph keeps
+    the reference's operations."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    V = logits.shape[-1]
+    hit = labels[..., None] == torch.arange(V, device=logits.device)
+    ll = torch.where(hit, logits, 0.0).sum(dim=-1)
+    loss = lse - ll
+    if z_loss:
+        loss = loss + z_loss * lse ** 2
+    if mask is not None:
+        return (loss * mask).sum() / torch.clamp_min(mask.sum(), 1)
+    return loss.mean()

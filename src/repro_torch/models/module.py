@@ -5,7 +5,8 @@ Every model declares its parameters as a nested dict of ``ParamSpec``
 (shape, logical axis names, init).  From that one declaration come the
 initialised tensors (``init_params`` on a device from a
 ``torch.Generator``; ``init_params_numpy`` as seeded numpy arrays), the
-parameter count and bytes, and the batch axis of every decode-state leaf
+abstract stand-ins of tracing (``abstract_params``: ``meta`` tensors, no
+storage), the parameter count and bytes, and the batch axis of every decode-state leaf
 (the serving engine reads ``"batch"`` in ``logical``).  The trees keep the
 reference's keys and stacked ``(L, ...)`` layouts, so weights and decode
 state carry across one to one (``params_from_numpy``).
@@ -102,6 +103,14 @@ def init_params_numpy(specs, seed: int):
                 * np.float32(s.std)).astype(dt)
 
     return tree_map(one, specs)
+
+
+def abstract_params(specs):
+    """A tree of ``meta`` tensors of each spec's shape and dtype: the
+    stand-in of tracing (``models/tracing.py``), which allocates
+    nothing."""
+    return tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype,
+                                          device="meta"), specs)
 
 
 def params_from_numpy(tree, device=None):

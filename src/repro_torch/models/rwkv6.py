@@ -18,7 +18,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..kernels import ops as kops
-from .layers import compute_dtype, embed_lookup, rms_norm
+from .layers import compute_dtype, cross_entropy, embed_lookup, rms_norm
 from .module import ParamSpec
 
 _LORA = 64
@@ -149,6 +149,14 @@ def forward(params, tokens, cfg: ModelConfig, state=None,
         return logits, {key: torch.stack([st[key] for st in new])
                         for key in new[0]}
     return logits
+
+
+def loss_fn(params, batch, cfg: ModelConfig):
+    """Token-mean cross entropy (z-loss 1e-4, optional ``mask``) of the
+    teacher-forced forward."""
+    logits = forward(params, batch["tokens"], cfg)
+    return cross_entropy(logits, batch["labels"], z_loss=1e-4,
+                         mask=batch.get("mask"))
 
 
 def state_specs(cfg: ModelConfig, batch: int, seq: int = 0) -> dict:

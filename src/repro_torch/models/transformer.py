@@ -10,8 +10,10 @@ window and MoE) and granite-moe-1b-a400m (MoE).
 The prefill attention (``block_apply``) goes through
 ``kernels.ops.flash_attention``: the CUDA kernel (K4) on the card,
 ``layers.attention_ref`` on the CPU.  Decode attends through
-``layers.attention_decode``.  The reference's sharding constraints,
-``pin_weight_shards`` and remat are dropped (one card, no training yet).
+``layers.attention_decode``.  ``loss_fn`` differentiates through the
+plain path (``ops`` raises for a CUDA call that autograd would
+differentiate: the kernels have no backward).  The reference's sharding
+constraints, ``pin_weight_shards`` and remat are dropped (one card).
 
 ``prefill`` raises on a VLM prompt shorter than its prefix: the
 reference's ``forward`` then runs over the P prefix positions and none of
@@ -26,8 +28,8 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..kernels import ops as kops
-from .layers import (attention_decode, compute_dtype, embed_lookup, rms_norm,
-                     rope, swiglu)
+from .layers import (attention_decode, compute_dtype, cross_entropy,
+                     embed_lookup, rms_norm, rope, swiglu)
 from .module import ParamSpec
 from . import moe as moe_mod
 
@@ -146,6 +148,19 @@ def forward(params, tokens, cfg: ModelConfig, prefix_embeds=None,
     if return_cache:
         return logits, (torch.stack(ks), torch.stack(vs)), aux_loss
     return logits, aux_loss
+
+
+def loss_fn(params, batch, cfg: ModelConfig):
+    """Token-mean cross entropy (z-loss 1e-4, optional ``mask``) of the
+    teacher-forced forward, plus the MoE load-balancing term
+    ``0.01 * aux / n_layers``."""
+    logits, aux = forward(params, batch["tokens"], cfg,
+                          prefix_embeds=batch.get("prefix_embeds"))
+    loss = cross_entropy(logits, batch["labels"], z_loss=1e-4,
+                         mask=batch.get("mask"))
+    if cfg.n_experts:
+        loss = loss + 0.01 * aux / cfg.n_layers
+    return loss
 
 
 # ------------------------------------------------------------------ decode

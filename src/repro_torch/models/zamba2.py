@@ -17,8 +17,8 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..kernels import ops as kops
-from .layers import (attention_decode, compute_dtype, embed_lookup, rms_norm,
-                     rope)
+from .layers import (attention_decode, compute_dtype, cross_entropy,
+                     embed_lookup, rms_norm, rope)
 from .module import ParamSpec
 from . import mamba2
 
@@ -158,6 +158,14 @@ def forward(params, tokens, cfg: ModelConfig, state=None, kv_caches=None,
     group_kv = (torch.stack([kv[0] for kv in kvs]),
                 torch.stack([kv[1] for kv in kvs]))
     return logits, mstate, (group_kv, tail_kv)
+
+
+def loss_fn(params, batch, cfg: ModelConfig):
+    """Token-mean cross entropy (z-loss 1e-4, optional ``mask``) of the
+    teacher-forced forward."""
+    logits = forward(params, batch["tokens"], cfg)
+    return cross_entropy(logits, batch["labels"], z_loss=1e-4,
+                         mask=batch.get("mask"))
 
 
 # ------------------------------------------------------------------ serving

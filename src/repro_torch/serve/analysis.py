@@ -40,9 +40,9 @@ Failure results carry ``dict(code, stage, message, retries)`` with
 report-error``.  Result persistence (``results_dir``) is atomic (tempfile
 + ``os.replace``), best-effort, and writes the reference's JSON layout.
 
-``kind="model"`` (a server-traced model-zoo config) needs the model
-tracing frontend, which the port does not have yet: such a request raises
-``NotImplementedError`` naming ``models/tracing``.
+``kind="model"`` requests name a model-zoo config and phase, traced
+server-side by ``models.tracing.trace_model`` (fault stage
+``trace-model``); they then join union batches like any other request.
 """
 from __future__ import annotations
 
@@ -68,9 +68,6 @@ from . import faults
 DEFAULT_DEADLINE_S = 60.0
 DEFAULT_MAX_RETRIES = 2
 
-#: The phases a model request may name (the reference's
-#: ``models.tracing.PHASES``).
-PHASES = ("prefill", "decode", "train")
 
 _ERROR_CODES = ("deadline", "quarantined", "load-error", "replay-error",
                 "report-error")
@@ -126,10 +123,10 @@ class AnalysisRequest:
     so there is no union to poison.
 
     ``kind="model"`` names a model-zoo ``config`` and ``phase`` (prefill /
-    decode / train) to trace server-side.  Its fields are validated as the
-    reference validates them; a valid model request then raises
-    ``NotImplementedError``, since the port has no ``models/tracing``
-    frontend yet."""
+    decode / train) to trace server-side through
+    ``models.tracing.trace_model`` at ``seq_len`` / ``batch_size``
+    (``reduced`` picks the config's smoke-size reduction); the eDAG then
+    rides the grid path like an uploaded trace."""
 
     trace: Optional[EDag] = None
     kernel: Optional[str] = None
@@ -176,12 +173,10 @@ class AnalysisRequest:
             if self.config is None:
                 raise ValueError("model requests need config= (a model-zoo "
                                  "config name)")
+            from ..models.tracing import PHASES
             if self.phase not in PHASES:
                 raise ValueError(f"phase must be one of {PHASES}, got "
                                  f"{self.phase!r}")
-            raise NotImplementedError(
-                "kind='model' requests need the model tracing frontend "
-                "(models/tracing), which the port does not have yet")
         elif self.config is not None:
             raise ValueError("config= requires kind='model'")
         if self.kind == "placement":
@@ -472,16 +467,22 @@ class AnalysisService:
         p.event.set()
 
     def _load(self, p: _Pending) -> bool:
-        """Stage 1+2: resolve the trace (client-supplied or server-side
-        kernel tracing) and finalize it.
-        Failures resolve ``p`` alone; returns True when ``p`` may join a
-        batch."""
+        """Stage 1+2: resolve the trace (client-supplied, server-side
+        kernel tracing, or model-zoo tracing) and finalize it.  Failures
+        resolve ``p`` alone; returns True when ``p`` may join a batch."""
         r = p.req
+        src_stage = "trace-model" if r.kind == "model" else "load"
 
         def load_fn(attempt):
             faults.check("load", rid=p.rid)
             return r.trace if r.trace is not None \
                 else _trace_kernel_by_name(r.kernel, r.n)
+
+        def trace_model_fn(attempt):
+            faults.check("trace-model", rid=p.rid)
+            from ..models.tracing import trace_model
+            return trace_model(r.config, r.phase, seq_len=r.seq_len,
+                               batch_size=r.batch_size, reduced=r.reduced)
 
         def finalize_fn(attempt):
             faults.check("finalize", rid=p.rid)
@@ -489,10 +490,12 @@ class AnalysisService:
             return p.g.trace_digest()
 
         try:
-            p.g = self._retrying(p, "load", load_fn)
+            p.g = self._retrying(
+                p, src_stage,
+                trace_model_fn if r.kind == "model" else load_fn)
             p.digest = self._retrying(p, "finalize", finalize_fn)
         except Exception as exc:
-            self._fail(p, "load-error", "load", exc)
+            self._fail(p, "load-error", src_stage, exc)
             return False
         if p.digest in self._quarantined:
             self._fail(p, "quarantined", "load", RuntimeError(
@@ -729,8 +732,10 @@ class AnalysisService:
             return v[k] if k is not None else v
 
         r = p.req
+        auto = (f"{r.config}:{r.phase}" if r.config is not None
+                else r.kernel) or f"r{p.rid}"
         out = {
-            "name": r.name or r.kernel or f"r{p.rid}",
+            "name": r.name or auto,
             "alphas": req_alphas,
             "ms": np.asarray(rep["ms"]),
             "compute_slots": np.asarray(rep["compute_slots"]),

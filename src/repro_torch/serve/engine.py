@@ -17,9 +17,11 @@ the host seconds each took; both end with a token read back to the host,
 so on the card they include the device's work.
 
 A ``vlm`` prompt is prefilled with zero patch embeddings (float32, one per
-patch position) in place of its first ``n_patches`` tokens, as in the
-reference's engine; ``prefill_batch`` builds that batch.  A prompt shorter
-than ``n_patches`` raises ``ValueError`` (``models/transformer.py``).
+patch position) in place of its first ``n_patches`` tokens, and an
+``encdec`` prompt over zero frame embeddings (float32, ``min(len(prompt),
+enc_len_cap)`` frames), as in the reference's engine; ``prefill_batch``
+builds that batch.  A prompt shorter than ``n_patches`` raises
+``ValueError`` (``models/transformer.py``).
 """
 from __future__ import annotations
 
@@ -36,8 +38,14 @@ from ..models.module import tree_leaves, tree_map
 
 def prefill_batch(cfg: ModelConfig, tokens: torch.Tensor) -> dict:
     """The prefill batch of ``tokens`` (B,T) for ``ModelApi.prefill_fn``:
-    for a ``vlm`` also zero patch embeddings (B, n_patches, d_model)."""
+    for a ``vlm`` also zero patch embeddings (B, n_patches, d_model), for
+    an ``encdec`` zero frame embeddings (B, min(T, enc_len_cap),
+    d_model)."""
     batch = {"tokens": tokens}
+    if cfg.family == "encdec":
+        batch["frame_embeds"] = torch.zeros(
+            (tokens.shape[0], min(tokens.shape[1], cfg.enc_len_cap),
+             cfg.d_model), dtype=torch.float32, device=tokens.device)
     if cfg.family == "vlm":
         batch["prefix_embeds"] = torch.zeros(
             (tokens.shape[0], cfg.n_patches, cfg.d_model),

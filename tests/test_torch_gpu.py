@@ -1,8 +1,9 @@
 """Tests of the port that need the card: the CUDA kernels (level step,
 WKV6, SSD, flash attention) against their plain versions (the level
 kernel also on union and class-mode replay plans), the engine, the union
-suite grids and the placement search on the card against the host, and
-the serving path on the card.
+suite grids and the placement search on the card against the host, the
+serving path on the card (the encoder-decoder's too), model-zoo tracing
+(no kernel runs) and model requests on the card.
 
 Marked ``gpu``; each test asks a fixture whether torch sees a CUDA device
 and skips when it does not.  Run on a machine with the card:
@@ -740,3 +741,95 @@ def test_collective_sensitivity_on_card_equals_expected(card):
     rows = {k: v.row() for k, v in got["per_axis"].items()}
     assert json.loads(json.dumps(dict(per_axis=rows, raw=got["raw"]))) == \
         want["train"]["collective_sensitivity"]
+
+
+# ------------------------------------ encoder-decoder and model-zoo tracing
+
+def test_serving_encdec_on_the_card_launches_k4(card):
+    """The reduced seamless-m4t served on the card: K4 once per encoder
+    layer and twice per decoder layer in every prefill, never in decode."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch import serve
+    cfg = ARCHS["seamless-m4t-large-v2"].reduced()
+    n0 = flash_attention.launches
+    res = serve.run(cfg, requests=3, slots=2, max_tokens=4, device="cuda",
+                    emit=lambda s: None)
+    assert flash_attention.launches - n0 == \
+        (cfg.n_enc_layers + 2 * cfg.n_layers) * res["stats"]["prefills"]
+    assert res["tokens"] == 12
+
+
+@pytest.mark.parametrize("frames", [12, 20])
+def test_encdec_prefill_on_card_equals_host(card, frames):
+    """The reduced seamless-m4t's prefill (float32) over 12 tokens and
+    ``frames`` frames on the card (K4, the cross-attention with T != S at
+    20 frames) against the host's plain path: logits and every cache leaf
+    within 1e-4 of their largest magnitude."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import get_model
+    from repro_torch.models.module import tree_map
+    api = get_model(ARCHS["seamless-m4t-large-v2"].reduced())
+    p = api.init(torch.Generator().manual_seed(0), torch.device("cpu"))
+    g = torch.Generator().manual_seed(1)
+    batch = dict(tokens=torch.randint(0, 256, (2, 12), generator=g),
+                 frame_embeds=torch.randn((2, frames, api.cfg.d_model),
+                                          generator=g))
+    with torch.inference_mode():
+        lh, sh = api.prefill_fn(p, batch, cache_len=16)
+        lc, sc = api.prefill_fn(tree_map(lambda t: t.to(card), p),
+                                tree_map(lambda t: t.to(card), batch),
+                                cache_len=16)
+    assert _rel(lc.cpu(), lh) < 1e-4
+    for key in sh:
+        assert _rel(sc[key].cpu(), sh[key]) < 1e-4, key
+
+
+def test_cuda_kernels_refuse_autograd(card):
+    """The kernels have no backward: a CUDA call that autograd would
+    differentiate raises instead of returning a detached result."""
+    from repro_torch.kernels import ops
+    q = torch.randn(1, 8, 2, 16, device=card, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.flash_attention(q, q.detach(), q.detach())
+    with torch.no_grad():
+        assert ops.flash_attention(q, q, q).shape == q.shape
+
+
+def test_model_tracing_on_the_card_runs_no_kernel(card):
+    """``trace_model`` with the card selected traces from meta tensors:
+    no model kernel launches, and the eDAG is the host's."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.wkv6 import wkv6
+    from repro_torch.models import tracing
+    n0 = (flash_attention.launches, wkv6.launches)
+    for name in ("qwen3-0.6b", "rwkv6-7b"):
+        g = tracing.trace_model(name, "prefill", use_store=False)
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setenv("EDAN_TORCH_BACKEND", "cpu")
+            h = tracing.trace_model(name, "prefill", use_store=False)
+        assert g.trace_digest() == h.trace_digest()
+    assert (flash_attention.launches, wkv6.launches) == n0
+
+
+def test_model_request_on_rung_0_on_the_card(card, tmp_path, monkeypatch):
+    """A model request answered on the level kernel on the card at rung
+    0, equal bit for bit to the host's answer."""
+    from repro_torch.serve import AnalysisRequest, AnalysisService, faults
+    monkeypatch.setenv("EDAN_SCHEDULE_CACHE", str(tmp_path))
+    faults.reset()
+
+    def request(backend):
+        return AnalysisRequest(config="qwen3-0.6b", kind="model",
+                               phase="decode", alphas=(60.0, 140.0),
+                               ms=(2, 4), backend=backend)
+    launches = level_step.launches
+    (res,) = AnalysisService(start=False, backoff_s=0.0).process(
+        [request(None)])
+    assert res.ok and res.policy == {"backend": "cuda",
+                                     "replay_dtype": "float32",
+                                     "demotions": 0}
+    assert level_step.launches > launches
+    (host,) = AnalysisService(start=False, backoff_s=0.0).process(
+        [request("cpu")])
+    assert _same_reports(res.report, host.report)

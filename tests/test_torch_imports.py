@@ -27,7 +27,8 @@ def test_the_port_has_files():
             "rwkv6.py", "zamba2.py", "engine.py", "serve.py",
             "flash_attention.py", "transformer.py", "moe.py",
             "schedule_cache.py", "trace_store.py", "analysis.py",
-            "faults.py", "hlo.py", "fxgraph.py", "chip_smoke.py"} <= names
+            "faults.py", "hlo.py", "fxgraph.py", "encdec.py", "tracing.py",
+            "chip_smoke.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

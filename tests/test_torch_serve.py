@@ -1,9 +1,10 @@
 """The port's serving path on the CPU: ``ServeEngine`` against the
 reference package's engine (rwkv6; qwen3, granite-moe with and without
-token drops, internvl2) and against the reference's per-request prefill +
-greedy decode loop (zamba2 with 2 slots, which the reference's engine
-cannot serve: its batch axis is fixed at 1), the serving launcher, and
-the card fixture's expected values.
+token drops, internvl2; seamless-m4t in ``test_torch_encdec.py``) and
+against the reference's per-request prefill + greedy decode loop (zamba2
+with 2 slots, which the reference's engine cannot serve: its batch axis is
+fixed at 1), the serving launcher, and the card fixture's expected values
+(all six families).
 
 Greedy tokens must be equal.  The fixture's logits are held to 1e-4 of
 their largest magnitude (the port's CPU path measured <= 2e-5 against
@@ -188,6 +189,14 @@ def test_launcher_cli_on_the_host(capsys):
     assert launch.parser().parse_args([]).reduced is True
 
 
+def test_launcher_serves_seamless_on_the_host(capsys):
+    """``--arch seamless-m4t-large-v2`` serves the reduced encoder-decoder
+    over zero frames as long as each prompt."""
+    launch.main(["--arch", "seamless-m4t-large-v2", "--requests", "3",
+                 "--slots", "2", "--max-tokens", "3", "--max-seq", "16"])
+    assert "3 requests, 9 tokens" in capsys.readouterr().out
+
+
 def test_launcher_default_arch_is_the_references():
     """``python -m repro_torch.launch.serve`` with no ``--arch`` serves what
     ``python -m repro.launch.serve`` serves."""
@@ -210,7 +219,7 @@ def test_launcher_run_reports_the_engine():
     assert res["device"] == "cpu"
 
 
-@pytest.mark.parametrize("index", [0, 1, 2, 3, 4])
+@pytest.mark.parametrize("index", [0, 1, 2, 3, 4, 5])
 def test_card_fixture_on_the_host(index):
     """The port's CPU path reproduces serve_expected.json: the reference's
     greedy tokens exactly, its prefill logits within 1e-4."""

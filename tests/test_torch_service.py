@@ -12,10 +12,13 @@ result ended on (names differ: the port reports its own backends), and
 every report bit for bit.  The case's own assertions then hold on each
 package's results.
 
-The reference's model-request cases become one test of the port's
-``NotImplementedError``; the reference's in-kernel fault case becomes a
-card test of the visible demotion (``tests/test_torch_gpu.py``), since
-the port's kernel hook fires only for tensors on the card.
+The reference's model-request cases run through both packages too, each
+tracing its own model eDAG (``models/tracing.py``): their outcomes must
+agree, and the port's reports must equal its own solo runs and the JAX
+package's ``grid_report`` of the port's eDAG.  The reference's in-kernel
+fault case becomes a card test of the visible demotion
+(``tests/test_torch_gpu.py``), since the port's kernel hook fires only for
+tensors on the card.
 """
 import json
 import os
@@ -318,11 +321,124 @@ def test_request_validation(pkg):
         A(kernel="atax", max_retries=-1)
 
 
-def test_model_requests_wait_for_the_tracing_frontend():
-    """The reference's model-request validation holds in the port, and a
-    valid model request raises ``NotImplementedError`` naming the missing
-    frontend (the reference traces it server-side)."""
-    A = PORT.serve.AnalysisRequest
+def mreq(P, config="qwen3-0.6b", phase="decode", **kw):
+    for k, v in GRID.items():
+        kw.setdefault(k, v)
+    kw.setdefault("backend", P.backend)
+    return P.serve.AnalysisRequest(config=config, phase=phase, kind="model",
+                                   **kw)
+
+
+def same_outcomes(out_r, out_t) -> None:
+    """The reference's and the port's results agree in everything but the
+    reports (each package traces its own model eDAG)."""
+    assert len(out_r) == len(out_t)
+    for a, b in zip(out_r, out_t):
+        assert (a.rid, a.ok, a.retries, a.batch_rids, a.stored) == \
+            (b.rid, b.ok, b.retries, b.batch_rids, b.stored)
+        if a.ok:
+            assert a.report["name"] == b.report["name"]
+            assert a.policy["demotions"] == b.policy["demotions"]
+        else:
+            for k in ("code", "stage", "retries"):
+                assert a.error[k] == b.error[k], k
+
+
+def reference_grid(g, **kw):
+    """The JAX package's ``grid_report`` of the port's eDAG."""
+    g._finalize()
+    rg = R.EDag.from_arrays(g.cost, g.is_mem, g.nbytes, g.src, g.dst)
+    return R.grid_report(rg, list(ALPHAS), ms=GRID["ms"],
+                         compute_slots=GRID["compute_slots"],
+                         simulate_points=True, **kw)
+
+
+def test_model_request_matches_direct_grid_report():
+    """kind='model' traces the config server-side; the report is the
+    port's ``trace_model`` + ``grid_report`` by hand, bit for bit, and the
+    JAX package's ``grid_report`` of the same eDAG."""
+    from repro_torch.models.tracing import trace_model
+    (res,) = svc(PORT).process([mreq(PORT)])
+    assert res.ok and res.error is None
+    assert res.report["name"] == "qwen3-0.6b:decode"
+    g = trace_model("qwen3-0.6b", "decode", use_store=False)
+    want = T.grid_report(g, list(ALPHAS), ms=GRID["ms"],
+                         compute_slots=GRID["compute_slots"],
+                         simulate_points=True, backend="cpu")
+    for w in (want, reference_grid(g)):
+        assert res.report["W"] == float(w["W"])
+        assert res.report["D"] == float(w["D"])
+        for key in ("simulated", "t_inf", "t_lower", "t_upper", "Lam"):
+            assert np.array_equal(res.report[key], w[key]), key
+    (ref,) = svc(REF).process([mreq(REF)])
+    same_outcomes([ref], [res])
+
+
+def test_model_requests_join_union_batches():
+    """Model requests are ordinary grid members: two configs plus an
+    uploaded trace co-batch into one union, every result bit-identical to
+    its solo run; the reference answers the same requests alike."""
+    def reqs(P):
+        return [mreq(P, "qwen3-0.6b"), mreq(P, "rwkv6-7b"), req(P, 0)]
+
+    batched = svc(PORT).process(reqs(PORT))
+    assert all(r.ok for r in batched)
+    assert all(len(r.batch_rids) == 3 for r in batched)
+    for r, solo_req in zip(batched, reqs(PORT)):
+        (solo,) = svc(PORT).process([solo_req])
+        assert_reports_equal(r.report, solo.report)
+    same_outcomes(svc(REF).process(reqs(REF)), batched)
+
+
+def test_transient_trace_model_fault_recovers():
+    def scenario(P):
+        P.faults.install("trace-model", "io", count=1)
+        return [process(svc(P), [mreq(P)])]
+
+    got = both_outcomes(scenario)
+    for (res,) in got.values():
+        assert res.ok and res.retries == 1
+
+
+def test_hard_trace_model_fault_structured():
+    def scenario(P):
+        P.faults.install("trace-model", "io")    # every attempt
+        return [process(svc(P), [mreq(P, max_retries=1)])]
+
+    got = both_outcomes(scenario)
+    for (res,) in got.values():
+        assert not res.ok
+        assert res.error["code"] == "load-error"
+        assert res.error["stage"] == "trace-model"
+        assert res.retries >= 1
+
+
+def test_unknown_config_fails_with_choices():
+    def scenario(P):
+        return [process(svc(P), [mreq(P, "not-a-model", max_retries=0)])]
+
+    for (res,) in both_outcomes(scenario).values():
+        assert not res.ok and res.error["code"] == "load-error"
+        assert "qwen3-0.6b" in res.error["message"]
+
+
+def both_outcomes(scenario):
+    """``both`` for model requests: the outcomes agree, the reports are
+    each package's own."""
+    got = {}
+    for P in (REF, PORT):
+        P.faults.reset()
+        try:
+            got[P.name] = scenario(P)
+        finally:
+            P.faults.reset()
+    for (_, ar), (_, at) in zip(got["repro"], got["repro_torch"]):
+        same_outcomes(ar, at)
+    return {k: v[0][1] for k, v in got.items()}
+
+
+def test_model_request_validation(pkg):
+    A = pkg.serve.AnalysisRequest
     with pytest.raises(ValueError, match="phase"):
         A(config="qwen3-0.6b", kind="model", phase="serve")
     with pytest.raises(ValueError, match="kind='model'"):
@@ -331,13 +447,20 @@ def test_model_requests_wait_for_the_tracing_frontend():
         A(config="qwen3-0.6b", kernel="atax", kind="model")
     with pytest.raises(ValueError, match="config="):
         A(kind="model")
+    assert "trace-model" in pkg.faults.STAGES
+
+
+def test_model_requests_wait_for_the_tracing_frontend():
+    """The tracing frontend is in: a model request of every phase is valid
+    in the port, as in the reference, and both name the same phases."""
     from repro.models.tracing import PHASES
-    assert tanalysis.PHASES == PHASES
+    from repro_torch.models.tracing import PHASES as TPHASES
+    assert TPHASES == PHASES
     for phase in PHASES:
-        with pytest.raises(NotImplementedError, match="models/tracing"):
-            A(config="qwen3-0.6b", kind="model", phase=phase)
-    RS.AnalysisRequest(config="qwen3-0.6b", kind="model")   # the reference
-    assert "trace-model" in PORT.faults.STAGES
+        for P in (REF, PORT):
+            r = P.serve.AnalysisRequest(config="qwen3-0.6b", kind="model",
+                                        phase=phase)
+            assert (r.kind, r.phase) == ("model", phase)
 
 
 # ------------------------------------------------------- retries + demotion

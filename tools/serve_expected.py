@@ -1,7 +1,7 @@
-"""Write the reference package's serving results on five small fixtures,
+"""Write the reference package's serving results on six small fixtures,
 for the PyTorch port to be held to on the card.
 
-Five fixture configurations, cut from the full configs to a few layers and
+Six fixture configurations, cut from the full configs to a few layers and
 narrow widths but at the full configs' head sizes and chunks:
 
 * rwkv6: 2 layers, d_model 128, 2 heads of 64, d_ff 256, ``ssm_chunk``
@@ -18,6 +18,9 @@ narrow widths but at the full configs' head sizes and chunks:
   d_ff 256, the full config's 256 patch positions, prompts of 384 tokens
   (256 placeholders, which zero patch embeddings replace, and 128 text
   tokens);
+* seamless-m4t: 2 encoder and 2 decoder layers, d_model 128, 2 heads of 64
+  (the full config's head size, as many KV heads), d_ff 256, each prompt
+  over zero frame embeddings as long as the prompt (the engine's frames);
 
 all float32, vocabulary 256.  Their weights are seeded numpy arrays from
 ``repro_torch.models.module.init_params_numpy`` (the port's specs, which
@@ -25,9 +28,9 @@ the CPU tests hold equal to the reference's), so both packages load the
 same weights.  Two prompts each run through the reference on the CPU:
 rwkv6 and zamba2 through its ``prefill`` and a greedy ``decode_step``
 loop, one prompt at a time (the reference's engine cannot hold zamba2's
-state); the transformer fixtures through its ``ServeEngine`` with 2 slots,
-as the port's engine serves them (an MoE decode step's capacity spans
-both slots).  The file keeps each prompt, its last-position prefill
+state); the transformer and encoder-decoder fixtures through its
+``ServeEngine`` with 2 slots, as the port's engine serves them (an MoE
+decode step's capacity spans both slots).  The file keeps each prompt, its last-position prefill
 logits and its greedy tokens, and the config overrides and seed that
 rebuild the weights.  No weights are written.
 
@@ -69,6 +72,10 @@ FIXTURES = [
          overrides=dict(n_layers=2, d_model=128, n_heads=2, n_kv_heads=1,
                         head_dim=128, d_ff=256, vocab_size=256,
                         n_patches=256, dtype="float32")),
+    dict(arch="seamless-m4t-large-v2", seed=6, slots=2,
+         overrides=dict(n_layers=2, n_enc_layers=2, d_model=128, n_heads=2,
+                        n_kv_heads=2, head_dim=64, d_ff=256, vocab_size=256,
+                        dtype="float32")),
 ]
 PROMPT_LEN = 128
 N_PROMPTS = 2
@@ -99,6 +106,10 @@ def run_fixture(fx: dict) -> dict:
         if cfg.family == "vlm":
             batch["prefix_embeds"] = jnp.zeros((1, cfg.n_patches,
                                                 cfg.d_model), jnp.float32)
+        if cfg.family == "encdec":      # the reference engine's frames
+            batch["frame_embeds"] = jnp.zeros(
+                (1, min(len(prompt), cfg.enc_len_cap), cfg.d_model),
+                jnp.float32)
         return api.prefill_fn(params, batch, cache_len=prompt_len + N_NEW)
 
     if "slots" in fx:                   # the reference's engine
