@@ -156,7 +156,30 @@ Phases, each timed; any failure ends the run with a non-zero exit:
              every outcome and report the fixture's; no model kernel
              launched by tracing; (d) K1 bitwise against its plain version
              on seamless-m4t's prefill replay plan (m=4, 8 ALU slots).
-12. report — the card line, the ``{"kernels": [...]}`` line, and last the
+12. train  — the training framework (``repro_torch.train``,
+             ``launch.train``): (a) the runs of
+             ``src/repro_torch/configs/train_expected.json`` (reduced
+             qwen3-0.6b and granite-moe-1b-a400m, float32, 8 steps,
+             microbatches 1 and 2, seeded numpy weights) through the port's
+             train step with TF32 off, every number within the fixture's
+             tolerances of the JAX package's; (b) qwen3-0.6b at full width
+             (float32 masters from seed 0, bf16 compute, batch 8 x 128
+             tokens) trained 8 steps by ``launch.train.run`` under the
+             fault-tolerant loop (checkpoints every 4 steps, keep 1, one
+             injected failure): losses finite and falling, one restart;
+             step ms, tokens/s, 6·N·tokens per second, peak memory, one
+             profiled step's idle share and the optimizer's share of it,
+             checkpoint save and restore seconds; none of K2-K4 launched
+             in (a) or (b); (c) the last checkpoint restored and served by
+             ``ServeEngine`` (one 128-token prefill, 3 decode steps: K4 28
+             times, once per layer, none in decode), one prefill and
+             decode step held block by block to the plain path within
+             ``SERVE_TOL``; (d) EDAN on the train step itself (the reduced
+             model's loss, gradient and AdamW update traced from ``meta``
+             inputs): ``report`` and a sweep grid under ``("cuda",
+             "float32")``, W >= D >= 1 and 0 <= Lambda <= 1, K1 launched,
+             no replay chunk on the host.
+13. report — the card line, the ``{"kernels": [...]}`` line, and last the
              ``{"ok": true, "device": {...}}`` line.
 
 Usage: python3 chip_smoke.py   (from the root of a checkout, one card)
@@ -164,11 +187,13 @@ Usage: python3 chip_smoke.py   (from the root of a checkout, one card)
 from __future__ import annotations
 
 import json
+import math
 import os
 import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -310,18 +335,21 @@ def check_kernel(lv, k: int, seed: int, label: str, wide: bool = False):
         raise SystemExit(f"{label}: no wide level at k={k}")
     n_cases, err = 0, 0.0
     for dtype in (torch.float32, torch.float64):
-        for want_r in (False, True):
-            for clamp in (False, True):
-                base = base_matrix(lv, k, seed, dtype, slot, dirty=True)
-                Fk, Fp = base.clone(), base.clone()
+        for clamp in (False, True):
+            base = base_matrix(lv, k, seed, dtype, slot, dirty=True)
+            # the plain version once, with its ready times: F does not
+            # depend on whether they are kept, and the plain version on
+            # the large plans takes seconds a call
+            Fp, Rp = base.clone(), torch.zeros_like(base)
+            level_step_plain(lv, Fp, clamp=clamp, R_out=Rp)
+            for want_r in (False, True):
+                Fk = base.clone()
                 Rk = torch.zeros_like(base) if want_r else None
-                Rp = torch.zeros_like(base) if want_r else None
                 n0 = level_step.launches
                 level_step(lv, Fk, clamp=clamp, R_out=Rk)
                 if level_step.launches - n0 != len(plan):
                     raise SystemExit(f"{label}: {level_step.launches - n0} "
                                      f"grids for a plan of {len(plan)} rows")
-                level_step_plain(lv, Fp, clamp=clamp, R_out=Rp)
                 torch.cuda.synchronize()
                 err = max(err, abs_err(Fk, Fp))
                 if want_r:
@@ -428,11 +456,13 @@ def measure(lv, k: int, dtype, clamp: bool, want_r: bool, reps: int,
     calls = max(level_step.calls - calls0, 1)
     per_call = (level_step.launches - launches0) / calls
     levels = (level_step.levels - levels0) / calls
-    plain = time_ms(lambda F: level_step_plain(lv, F, clamp=clamp,
-                                               R_out=R()),
-                    bases[:plain_reps], warmup=1)
-    lib = time_ms(lambda F: library_version(lv, F, clamp, R()),
-                  bases[:plain_reps], warmup=1)
+    plain = lib = None
+    if plain_reps:
+        plain = time_ms(lambda F: level_step_plain(lv, F, clamp=clamp,
+                                                   R_out=R()),
+                        bases[:plain_reps], warmup=1)
+        lib = time_ms(lambda F: library_version(lv, F, clamp, R()),
+                      bases[:plain_reps], warmup=1)
     # the yardstick must compute the same function
     Fk, Fl = bases[0].clone(), bases[0].clone()
     level_step(lv, Fk, clamp=clamp)
@@ -2636,6 +2666,342 @@ def serve_full_width(name: str, kernel, prompt_len: int, max_seq: int,
     torch.cuda.empty_cache()
     return out
 
+# -------------------------------------------------------------- train phase
+
+#: phase "train": the full-width run (the launcher's defaults but the
+#: steps), its checkpoint cadence and the step whose first try fails
+TRAIN_ARCH, TRAIN_STEPS, TRAIN_SAVE_EVERY, TRAIN_FAIL_AT = (
+    "qwen3-0.6b", 8, 4, 6)
+TRAIN_BATCH, TRAIN_SEQ = 8, 128
+#: decode steps after the trained weights' prefill
+TRAIN_DECODE = 3
+
+
+def train_fixture(expected: dict) -> dict:
+    """(a) The runs of ``configs/train_expected.json`` through the port's
+    train step on the card (TF32 off): every loss, gradient norm, learning
+    rate and parameter slice within the fixture's tolerance of the JAX
+    package's (``tools/train_expected.py``: ``TOL``; the MoE run's
+    gradient norms after its first step within ``DRIFT_TOL``)."""
+    import torch
+    import train_expected as TE      # as the fixture was written
+    print(f"  TF32: matmul {torch.backends.cuda.matmul.allow_tf32}, cudnn "
+          f"{torch.backends.cudnn.allow_tf32}", flush=True)
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise SystemExit("phase train: TF32 is on")
+    out = {}
+    for arch in TE.ARCHS:
+        for mb in TE.MICROBATCHES:
+            name = TE.run_name(arch, mb)
+            t0 = time.perf_counter()
+            got = TE.port_run(arch, mb, "cuda")
+            err = TE.compare(got, expected["runs"][name])
+            bad = TE.over_tolerance(arch, err)
+            out[name] = dict(err, seconds=time.perf_counter() - t0)
+            print(f"  train fixture {name}: {json.dumps(out[name])}",
+                  flush=True)
+            if bad:
+                raise SystemExit(f"train fixture {name}: {bad}")
+    return out
+
+
+class timed_checkpoints:
+    """Within the block every ``train.checkpoint.save`` and ``restore``
+    (sync saves, the async writer's saves, restores) is timed: seconds and
+    bytes of each."""
+
+    def __enter__(self):
+        from repro_torch.train import checkpoint as ckpt
+        self.saved = ckpt.save, ckpt.restore
+        self.saves, self.restores = [], []
+        lock = threading.Lock()
+
+        def size(path):
+            return sum(f.stat().st_size for f in Path(path).iterdir())
+
+        def save(tree, directory, step, **kw):
+            t0 = time.perf_counter()
+            final = self.saved[0](tree, directory, step, **kw)
+            with lock:
+                self.saves.append(dict(step=step, s=time.perf_counter() - t0,
+                                       gb=size(final) / 1e9))
+            return final
+
+        def restore(template, directory, step=None, **kw):
+            import torch
+            t0 = time.perf_counter()
+            out = self.saved[1](template, directory, step, **kw)
+            torch.cuda.synchronize()
+            path = Path(directory) / f"step_{out[1]['step']:08d}"
+            self.restores.append(dict(step=out[1]["step"],
+                                      s=time.perf_counter() - t0,
+                                      gb=size(path) / 1e9))
+            return out
+        ckpt.save, ckpt.restore = save, restore
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.train import checkpoint as ckpt
+        ckpt.save, ckpt.restore = self.saved
+        return False
+
+
+def profile_train_step(api, tc, state, batch) -> dict:
+    """One more train step under ``torch.profiler``: its wall seconds,
+    the device's busy seconds (the kernels' device times; one stream) and
+    idle share; then the AdamW update alone on that step's gradients,
+    profiled the same way: its busy seconds and share of the step's."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.train import train_loop
+    from repro_torch.train.optimizer import adamw_update
+    step = train_loop.make_train_step(api, tc)
+    stash = {}
+    orig = train_loop.adamw_update
+
+    def keep(params, grads, opt, tc_):
+        stash["args"] = (params, grads, opt, tc_)
+        return orig(params, grads, opt, tc_)
+
+    def busy(fn) -> tuple:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        dev = sum(getattr(ev, "self_device_time_total",
+                          getattr(ev, "self_cuda_time_total", 0.0)) / 1e6
+                  for ev in prof.key_averages()
+                  if getattr(ev, "device_type", None) == DeviceType.CUDA)
+        return wall, dev
+
+    train_loop.adamw_update = keep
+    try:
+        wall, dev = busy(lambda: step(state["params"], state["opt"], batch))
+    finally:
+        train_loop.adamw_update = orig
+    opt_wall, opt_dev = busy(lambda: adamw_update(*stash.pop("args")))
+    if dev <= 0:
+        return dict(wall_s=wall, device_busy_s="not measured")
+    return dict(wall_s=wall, device_busy_s=dev,
+                device_idle_share=max(0.0, 1.0 - dev / wall),
+                optimizer_wall_s=opt_wall, optimizer_busy_s=opt_dev,
+                optimizer_share_of_busy=opt_dev / dev)
+
+
+def train_full_width(work: Path, card: str) -> tuple:
+    """(b) ``launch.train.run`` at the full config of ``TRAIN_ARCH``
+    (float32 masters from seed 0, bf16 compute; the launcher's batch and
+    sequence) for ``TRAIN_STEPS`` steps under ``FaultTolerantLoop``:
+    ``TRAIN_SAVE_EVERY``, ``keep=1`` and one injected failure at
+    ``TRAIN_FAIL_AT``.  The losses and gradient norms finite, the last
+    loss below the first, one restart.  Returns (the run's numbers, the
+    final state, the checkpoint directory)."""
+    import torch
+    from repro_torch.configs import ARCHS, TrainConfig
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.launch import train
+    from repro_torch.models import get_model
+    cfg = ARCHS[TRAIN_ARCH]
+    api = get_model(cfg)
+    ckpt_gb = 3 * 4 * api.n_params() / 1e9     # params and two moments
+    free_gb = shutil.disk_usage(work).free / 1e9
+    print(f"  disk: {free_gb:.1f} GB free under {work}; one checkpoint "
+          f"{ckpt_gb:.2f} GB", flush=True)
+    if free_gb < 2.2 * ckpt_gb:
+        raise SystemExit(f"phase train: {free_gb:.1f} GB free, two "
+                         f"checkpoints of {ckpt_gb:.2f} GB need more")
+    seen = set()
+
+    def fail_once(s: int) -> bool:
+        if s == TRAIN_FAIL_AT and s not in seen:
+            seen.add(s)
+            return True
+        return False
+    torch.cuda.reset_peak_memory_stats()
+    ckdir = work / "ckpt"
+    with timed_checkpoints() as tck:
+        res = train.run(cfg, steps=TRAIN_STEPS, global_batch=TRAIN_BATCH,
+                        seq=TRAIN_SEQ, ckpt_dir=str(ckdir),
+                        save_every=TRAIN_SAVE_EVERY, keep=1, device="cuda",
+                        inject_failure=fail_once,
+                        emit=lambda m: print("  " + m, flush=True))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses, gnorms = res["loss"], res["grad_norm"]
+    if (not all(math.isfinite(x) for x in losses + gnorms) or
+            losses[-1] >= losses[0] or res["restarts"] != 1 or
+            res["step"][-1] != TRAIN_STEPS - 1):
+        raise SystemExit(f"train {TRAIN_ARCH}: losses {losses}, grad norms "
+                         f"{gnorms}, {res['restarts']} restarts, steps "
+                         f"{res['step']}")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    step_s = sorted(res["seconds"][1:])[len(res["seconds"][1:]) // 2]
+    n = res["n_params"]
+    tc = TrainConfig(total_steps=TRAIN_STEPS)
+    data = SyntheticLMData(vocab_size=cfg.padded_vocab(), seq_len=TRAIN_SEQ,
+                           global_batch=TRAIN_BATCH, seed=0)
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in data.batch(TRAIN_STEPS).items()}
+    prof = profile_train_step(api, tc, res["state"], batch)
+    out = dict(
+        arch=TRAIN_ARCH, params=n, steps=TRAIN_STEPS, tokens_per_step=tokens,
+        steps_run=res["step"], loss=losses, grad_norm=gnorms, lr=res["lr"],
+        step_s=res["seconds"], step_ms_median=1e3 * step_s,
+        tokens_per_s=tokens / step_s,
+        tflops_6nt=6 * n * tokens / step_s / 1e12,
+        # the profiled step's own idle share; and, derived, the profiled
+        # step's busy seconds over the median unprofiled step's wall
+        idle_share_profiled_step=prof.get("device_idle_share",
+                                          "not measured"),
+        idle_share_derived_median_step=(
+            max(0.0, 1.0 - prof["device_busy_s"] / step_s)
+            if isinstance(prof["device_busy_s"], float) else "not measured"),
+        restarts=res["restarts"], stragglers=res["stragglers"],
+        loop_s=res["seconds_total"], peak_gib=peak,
+        saves=tck.saves, restores=tck.restores, profile=prof, card=card)
+    print(f"  train {TRAIN_ARCH} ({n:,} params): step {out['step_ms_median']:.1f}"
+          f" ms (median of {len(res['seconds']) - 1}), "
+          f"{out['tokens_per_s']:.0f} tokens/s, 6NT "
+          f"{out['tflops_6nt']:.1f} TFLOP/s, peak {peak:.1f} GiB, loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}, {res['restarts']} restart; "
+          f"saves {[round(x['s'], 2) for x in tck.saves]} s of "
+          f"{tck.saves[0]['gb']:.2f} GB, restores "
+          f"{[round(x['s'], 2) for x in tck.restores]} s; idle share "
+          f"{out['idle_share_profiled_step']} of the profiled step "
+          f"(derived over the median step: "
+          f"{out['idle_share_derived_median_step']}); profiled step "
+          f"{json.dumps(prof)} ({card})", flush=True)
+    return out, res["state"], ckdir
+
+
+def serve_trained(ckdir: Path, state) -> dict:
+    """(c) The last checkpoint's parameters restored onto the card (equal
+    to the loop's final state) and served through ``ServeEngine``: one
+    request of ``TRAIN_SEQ`` tokens, one prefill and ``TRAIN_DECODE``
+    decode steps, K4 launched once per layer in the prefill and never in
+    decode; then one prefill and one decode step with every block and
+    every K4 call held to the plain path on the same trained weights."""
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import get_model, transformer
+    from repro_torch.serve import Request, ServeEngine, prefill_batch
+    from repro_torch.train import checkpoint as ckpt
+    cfg = ARCHS[TRAIN_ARCH]
+    api = get_model(cfg)
+    t0 = time.perf_counter()
+    tree, meta = ckpt.restore({"params": api.abstract()}, str(ckdir),
+                              device="cuda")
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    params = tree["params"]
+    same = all(torch.equal(a, b) for a, b in zip(
+        ckpt._flatten(params).values(),
+        ckpt._flatten(state["params"]).values()))
+    if meta["step"] != TRAIN_STEPS or not same:
+        raise SystemExit(f"restored step {meta['step']}, equal to the "
+                         f"final state: {same}")
+    max_seq = TRAIN_SEQ + TRAIN_DECODE + 1
+    reset_counts()
+    eng = ServeEngine(api, params, batch_slots=1, max_seq=max_seq)
+    eng.submit(Request(prompt=prompt_tokens(cfg, TRAIN_SEQ, 4)[0].tolist(),
+                       max_tokens=TRAIN_DECODE + 1))
+    (done,) = eng.run_until_done()
+    counts = read_counts()
+    st = eng.stats
+    want = dict.fromkeys(counts, 0)
+    want["flash_attention"] = attention_calls(cfg) * st["prefills"]
+    if (counts != want or st["prefills"] != 1 or
+            st["decode_steps"] != TRAIN_DECODE or
+            len(done.output) != TRAIN_DECODE + 1):
+        raise SystemExit(f"serving the trained weights: launches {counts}, "
+                         f"expected {want}; {st}")
+    prompt = prompt_tokens(cfg, TRAIN_SEQ, 5)
+    with torch.inference_mode():
+        with attention_compare() as att, block_compare(transformer,
+                                                      False) as cmp:
+            lk, cache = api.prefill_fn(params, prefill_batch(cfg, prompt),
+                                       cache_len=max_seq)
+            step, _ = api.decode_fn(params, cache, {
+                "tokens": lk.argmax(-1, keepdim=True),
+                "cur_index": prompt.shape[1]})
+    if (not (torch.isfinite(lk).all() and torch.isfinite(step).all()) or
+            att.calls != attention_calls(cfg) or att.worst > SERVE_TOL or
+            cmp.blocks != cfg.n_layers or cmp.worst_h > SERVE_TOL):
+        raise SystemExit(f"trained weights, kernels vs plain: {att.calls} "
+                         f"attention calls within {att.worst:.3e}, "
+                         f"{cmp.blocks} blocks within {cmp.worst_h:.3e} "
+                         f"(> {SERVE_TOL:.3e}?)")
+    out = dict(restore_s=restore_s, restore_gb=4 * api.n_params() / 1e9,
+               step=meta["step"], tokens=done.output,
+               prefill_ms=1e3 * st["prefill_s"],
+               decode_ms_per_step=1e3 * st["decode_s"] / st["decode_steps"],
+               launches=counts, attention_rel_err=att.worst,
+               attention_calls=att.calls, block_h_rel_err=cmp.worst_h,
+               blocks=cmp.blocks)
+    print(f"  serve trained {TRAIN_ARCH}: {json.dumps(out)}", flush=True)
+    return out
+
+
+def edan_train_step() -> dict:
+    """(d) EDAN on the framework's own train step: the reduced
+    ``TRAIN_ARCH``'s loss, gradient and AdamW update traced from ``meta``
+    inputs (``tracing.trace_train_step``), then ``report`` and a sweep
+    grid (13 alphas x m (2, 4, 8) x (0, 8) ALU slots) under ``("cuda",
+    "float32")``: W >= D >= 1, 0 <= Lambda <= 1 (``tests/test_system.py``'s
+    checks), no replay chunk on the host, K1 launched."""
+    import numpy as np
+    from repro_torch.core import backend as B
+    from repro_torch.core import report, sweep_grid
+    from repro_torch.core.plan import ExecPolicy
+    from repro_torch.models import tracing
+    t0 = time.perf_counter()
+    g = tracing.trace_train_step(TRAIN_ARCH)
+    trace_s = time.perf_counter() - t0
+    B.reset_stats()
+    with k1_counts() as k1:
+        r = report(g)
+        grid = sweep_grid(g, np.linspace(50.0, 300.0, 13), ms=(2, 4, 8),
+                          compute_slots=(0, 8),
+                          policy=ExecPolicy.resolve(backend="cuda",
+                                                    replay_dtype="float32"))
+    if not (r.W >= r.D >= 1 and 0 <= r.Lam <= 1 and r.parallelism >= 1.0 and
+            np.isfinite(grid).all() and k1.grids > 0 and
+            B.stats["cuda_chunks"] > 0 and B.stats["cpu_chunks"] == 0):
+        raise SystemExit(f"EDAN on the train step: W {r.W}, D {r.D}, Lambda "
+                         f"{r.Lam}, parallelism {r.parallelism}, K1 grids "
+                         f"{k1.grids}, replays {dict(B.stats)}")
+    out = dict(vertices=int(g.n_vertices), levels=int(g._level_csr().n_levels),
+               trace_s=trace_s, W=r.W, D=r.D, lam=r.lam, Lam=r.Lam,
+               parallelism=r.parallelism, replay=B.stats.snapshot(),
+               **k1.row())
+    print(f"  EDAN on the train step: {json.dumps(out)}", flush=True)
+    return out
+
+
+def run_train(expected: dict, card: str) -> dict:
+    """Phase "train": (a) ``train_fixture``, (b) ``train_full_width``,
+    both launching none of K2-K4 (every count 0 from before (a) to after
+    (b)); (c) ``serve_trained``; (d) ``edan_train_step``."""
+    import torch
+    reset_counts()
+    out = dict(fixture=train_fixture(expected))
+    work = scratch_dir("train")
+    try:
+        out["full"], state, ckdir = train_full_width(work, card)
+        counts = read_counts()
+        if any(counts.values()):
+            raise SystemExit(f"training launched kernels: {counts}")
+        out["serve"] = serve_trained(ckdir, state)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    del state
+    torch.cuda.empty_cache()
+    out["edan"] = edan_train_step()
+    return out
+
 
 def main() -> int:
     try:
@@ -2727,8 +3093,9 @@ def main() -> int:
         meas = dict(
             gemm_replay_f32=measure(gplan.lv, n_alpha, torch.float32, False,
                                     True, reps=20, plain_reps=2),
+            # float64's plain and library times are not reported
             gemm_replay_f64=measure(gplan.lv, n_alpha, torch.float64, False,
-                                    True, reps=20, plain_reps=2))
+                                    True, reps=20, plain_reps=0))
         for key, m in meas.items():
             print(f"  {key}: {json.dumps(m)}", flush=True)
         union_meas = dict(
@@ -2853,6 +3220,13 @@ def main() -> int:
         print(f"  zoo launches: {launches_zoo}; K1 vs plain on the {zk} "
               f"replay plan: {zoo_cases} cases bitwise", flush=True)
 
+    train_expected = json.loads((SRC / "repro_torch" / "configs" /
+                                 "train_expected.json").read_text())
+    with phase("train"):
+        t_train = time.perf_counter()
+        train_res = run_train(train_expected, card)
+        train_res["seconds"] = time.perf_counter() - t_train
+
     with phase("report"):
         m = meas["gemm_replay_f32"]
         kern = dict(
@@ -2878,6 +3252,7 @@ def main() -> int:
             launches_service=service_launches,
             launches_frontend=frontend_launches,
             launches_zoo=launches_zoo,
+            launches_train=train_res["edan"]["k1_grids"],
             plain_ms_union=union_meas["narrow"]["union"]["plain_ms"],
             library_ms_union=union_meas["narrow"]["union"]["library_ms"],
             plain_ms_union_wide=union_meas["wide"]["union"]["plain_ms"],
@@ -2926,6 +3301,7 @@ def main() -> int:
             launches=serve_launches["flash_attention"],
             launches_per_arch={m["arch"]: m["launches"]["flash_attention"]
                                for m in served},
+            launches_train=train_res["serve"]["launches"]["flash_attention"],
             max_abs_err=att_checks["max_abs_err"],
             max_rel_err=att_checks["max_rel_err"],
             max_rel_err_round_p=att_checks["max_rel_err_round_p"],
@@ -2942,6 +3318,7 @@ def main() -> int:
         print(f"  fixtures: {json.dumps(fixtures)}", flush=True)
         print(f"  frontend: {json.dumps(frontend_res)}", flush=True)
         print(f"  zoo: {json.dumps(zoo_res)}", flush=True)
+        print(f"  train: {json.dumps(train_res)}", flush=True)
         print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
     # the last three lines: the card, the kernels, the verdict
     print(card_line(), flush=True)

@@ -2,16 +2,26 @@
 
 * ``ARCHS`` / ``get_config``: the model zoo's architectures, one module
   each, copied as plain data from the reference package (``base.py`` holds
-  ``ModelConfig`` and ``ShapeConfig``).  The port serves the ``ssm``
-  (rwkv6-7b) and ``hybrid`` (zamba2-7b) families; the others are named so
-  that ``get_config`` knows every architecture.
+  ``ModelConfig``, ``ShapeConfig``, ``SHAPES``, ``shape_applicable`` and
+  ``TrainConfig``).  The port builds all six families (``dense``, ``moe``,
+  ``vlm``, ``ssm``, ``hybrid``, ``encdec``) at every width.
 * ``paper_suite``: the paper's own workload settings, and
   ``paper_expected.json`` the reference package's paper-size results the
   port is held to.
 * ``serve_expected.json``: the reference package's logits and greedy
-  tokens on the two small serving fixtures (``tools/serve_expected.py``).
+  tokens on six small serving fixtures, one per family
+  (``tools/serve_expected.py``).
+* ``train_expected.json``: the reference package's losses, gradient
+  norms, learning rates and parameter slices over 8 train steps of two
+  small configs, and one step of every family with its parameters whole
+  (``tools/train_expected.py``).
+* ``suite_expected.json``, ``service_expected.json``,
+  ``frontend_expected.json`` (with the HLO texts under ``hlo/``) and
+  ``zoo_expected.json``: the reference package's results that
+  ``chip_smoke.py``'s later phases are held to.
 """
-from .base import ModelConfig, ShapeConfig
+from .base import (FULL_ATTENTION_ONLY, SHAPES, ModelConfig, ShapeConfig,
+                   TrainConfig, shape_applicable)
 
 from .deepseek_67b import CONFIG as deepseek_67b
 from .deepseek_coder_33b import CONFIG as deepseek_coder_33b
@@ -39,4 +49,5 @@ def get_config(name: str) -> ModelConfig:
     return ARCHS[name]
 
 
-__all__ = ["ModelConfig", "ShapeConfig", "ARCHS", "get_config"]
+__all__ = ["ModelConfig", "ShapeConfig", "TrainConfig", "SHAPES",
+           "ARCHS", "get_config", "shape_applicable", "FULL_ATTENTION_ONLY"]

@@ -1,7 +1,10 @@
 """Model configurations of the model zoo: the dataclasses of the
-reference package's ``configs/base.py`` that the port's models and serving
-path read (``ModelConfig``, ``ShapeConfig``), copied so that the port
-imports nothing of the reference.
+reference package's ``configs/base.py`` that the port's models, serving
+path and training framework read (``ModelConfig``, ``ShapeConfig``,
+``SHAPES``, ``FULL_ATTENTION_ONLY``, ``shape_applicable``,
+``TrainConfig``), copied so that the port imports nothing of the
+reference.  The reference's ``HW`` table is not copied: it holds one TPU
+generation's rates, and the dry-run that reads it is not ported yet.
 
 ``ModelConfig.use_pallas`` stays so that the field names match, but the
 port does not consult it: ``kernels/ops.py`` dispatches on the device of
@@ -103,6 +106,12 @@ class ModelConfig:
         )
         return replace(self, **kw)
 
+    def active_params_per_token_factor(self) -> float:
+        """Fraction of FFN params active per token (MoE top-k / E)."""
+        if self.n_experts:
+            return self.top_k / self.n_experts
+        return 1.0
+
 
 @dataclass(frozen=True)
 class ShapeConfig:
@@ -110,3 +119,48 @@ class ShapeConfig:
     seq_len: int
     global_batch: int
     kind: str                   # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+# archs with a full (non-windowed, non-recurrent) attention path cannot run
+# the sub-quadratic long-context shape
+FULL_ATTENTION_ONLY = {
+    "deepseek-67b", "deepseek-coder-33b", "qwen3-0.6b", "phi3-mini-3.8b",
+    "internvl2-2b", "granite-moe-1b-a400m", "seamless-m4t-large-v2",
+}
+
+
+def shape_applicable(arch: str, shape: ShapeConfig) -> bool:
+    if shape.name == "long_500k" and arch in FULL_ATTENTION_ONLY:
+        return False
+    return True
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """The training run's settings, field for field the reference's.  As
+    in the reference, ``make_train_step`` reads neither ``z_loss`` (the
+    models' losses fix it at 1e-4) nor ``grad_compression`` (int8
+    compression is ``train.compression``'s own step)."""
+    lr: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    grad_clip: float = 1.0
+    z_loss: float = 1e-4
+    microbatches: int = 1            # grad accumulation
+    grad_compression: str = "none"   # none | int8
+    cast_params_bf16: bool = False   # mixed precision: bf16 compute copy,
+                                     # f32 master in the optimizer
+    seed: int = 0
+    checkpoint_every: int = 100
+    checkpoint_dir: str = "/tmp/repro_ckpt"
+    keep_checkpoints: int = 3

@@ -6,12 +6,23 @@ models run on the CPU (the chunked recurrences of ``ref.py``,
 no kernel can run on it: it takes the plain versions too, which is what
 the reference traces (``use_pallas=False``) and what ``models/tracing.py``
 captures.  There is no fallback between the two: a failed build or launch
-raises, and a CUDA tensor never takes the plain path.  The kernels have no
-backward, so a CUDA call that autograd would differentiate raises (the
-models' losses differentiate through the plain versions, on the CPU or
-abstractly).  The configs' ``use_pallas`` is not consulted.
+raises, and a CUDA tensor never takes the plain path silently.  The
+configs' ``use_pallas`` is not consulted.
+
+The kernels compute forward only.  A CUDA call that autograd would
+differentiate raises, except inside ``differentiable()``: the training
+route, which ``train.train_loop.make_train_step`` enters and nothing else
+does.  Inside it every call takes the plain version on any device —
+``attention_ref`` with the model's ``attn_chunk_kv``,
+``ref.wkv6_chunked_ref``, ``ref.ssd_chunked_ref`` — and autograd
+differentiates it.  That is the reference's own training math: its train
+step differentiates those same functions and runs no Pallas kernel
+(``use_pallas`` is off in every config, and it has no backward kernel).
 """
 from __future__ import annotations
+
+import threading
+from contextlib import contextmanager
 
 import torch
 
@@ -21,21 +32,45 @@ from .ssd import ssd as ssd_kernel
 from .wkv6 import wkv6 as wkv6_kernel
 
 
+_route = threading.local()
+
+
+@contextmanager
+def differentiable():
+    """The training route: inside the block every call takes the plain
+    version, CUDA tensors included, so that autograd can differentiate
+    it (the reference's train step differentiates the same functions).
+    Only ``make_train_step`` enters it."""
+    prev = getattr(_route, "plain", False)
+    _route.plain = True
+    try:
+        yield
+    finally:
+        _route.plain = prev
+
+
+def training_route() -> bool:
+    """True inside ``differentiable()``."""
+    return getattr(_route, "plain", False)
+
+
 def _plain(*tensors: torch.Tensor) -> bool:
-    """True when the tensors take the plain version (all on the CPU or all
-    ``meta``), False when they take the kernel (all on CUDA); raises on
-    mixed devices, on any other device, and on CUDA tensors that autograd
-    would differentiate."""
+    """True when the tensors take the plain version (all on the CPU, all
+    ``meta``, or inside ``differentiable()``), False when they take the
+    kernel (all on CUDA); raises on mixed devices, on any other device,
+    and, outside ``differentiable()``, on CUDA tensors that autograd would
+    differentiate."""
     types = {t.device.type for t in tensors}
     if len(types) != 1 or types - {"cpu", "cuda", "meta"}:
         raise ValueError(f"inputs must all be on the CPU, all on CUDA or "
                          f"all meta, got {sorted(types)}")
-    if "cuda" not in types:
+    if "cuda" not in types or training_route():
         return True
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError("the CUDA kernels have no backward: "
-                           "differentiate through the plain versions (CPU "
-                           "or meta tensors)")
+                           "differentiate inside ops.differentiable() (the "
+                           "training route: the plain versions) or on CPU "
+                           "or meta tensors")
     return False
 
 

@@ -12,10 +12,12 @@ and ``encdec`` (seamless-m4t-large-v2, ``encdec.py``):
   decode_fn(params, cache, batch)   -> (logits, decode state)
   input_specs(shape)                -> the batch of one shape, as ``meta``
   cache_specs(shape)                -> decode-state ParamSpec tree
+  rules_override()                  -> the family's sharding-rule override
 A ``vlm`` batch carries ``prefix_embeds`` (B, n_patches, d_model) beside
 its ``tokens``, an ``encdec`` batch ``frame_embeds`` (B, enc_len,
-d_model).  The reference's ``logical_axes`` and ``rules_override`` feed
-only its sharding rules and come with them (ROADMAP A6).
+d_model).  ``module.logical_axes`` gives the logical-axis tree of
+``specs()``; with ``rules_override`` (``moe.ep_rules`` for an MoE) it
+feeds ``sharding.rules``.
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ from typing import Optional
 import torch
 
 from ..configs.base import ModelConfig, ShapeConfig
-from . import encdec, rwkv6, transformer, zamba2
+from . import encdec, moe, rwkv6, transformer, zamba2
 from .layers import compute_dtype
 from .module import abstract_params, init_params, param_count
 
@@ -136,6 +138,9 @@ class ModelApi:
         if c.family == "hybrid":
             return zamba2.state_specs(c, B, S)
         return encdec.cache_specs(c, B, S, self.enc_len(shape))
+
+    def rules_override(self) -> dict:
+        return moe.ep_rules(self.cfg) if self.cfg.n_experts else {}
 
 
 def get_model(cfg: ModelConfig) -> ModelApi:

@@ -6,10 +6,12 @@ Every model declares its parameters as a nested dict of ``ParamSpec``
 initialised tensors (``init_params`` on a device from a
 ``torch.Generator``; ``init_params_numpy`` as seeded numpy arrays), the
 abstract stand-ins of tracing (``abstract_params``: ``meta`` tensors, no
-storage), the parameter count and bytes, and the batch axis of every decode-state leaf
-(the serving engine reads ``"batch"`` in ``logical``).  The trees keep the
-reference's keys and stacked ``(L, ...)`` layouts, so weights and decode
-state carry across one to one (``params_from_numpy``).
+storage), the parameter count and bytes, the batch axis of every
+decode-state leaf (the serving engine reads ``"batch"`` in ``logical``)
+and the logical-axis tree (``logical_axes``) that ``sharding.rules`` maps
+to mesh axes.  The trees keep the reference's keys and stacked ``(L,
+...)`` layouts, so weights and decode state carry across one to one
+(``params_from_numpy``).
 """
 from __future__ import annotations
 
@@ -111,6 +113,11 @@ def abstract_params(specs):
     nothing."""
     return tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype,
                                           device="meta"), specs)
+
+
+def logical_axes(specs):
+    """The tree of logical-axis tuples parallel to the parameters."""
+    return tree_map(lambda s: s.logical, specs)
 
 
 def params_from_numpy(tree, device=None):

@@ -96,3 +96,10 @@ def moe_ffn(x: torch.Tensor, wb: dict, cfg: ModelConfig):
     y, aux = _local_tp(x.reshape(-1, d), wb["router"], wb["wg"], wb["wu"],
                        wb["wd"], cfg)
     return y.reshape(B, T, d), aux
+
+
+def ep_rules(cfg: ModelConfig) -> dict:
+    """Sharding-rule override when experts are model-sharded."""
+    if cfg.moe_parallelism == "ep":
+        return {"expert": ("model",), "mlp": ()}
+    return {}

@@ -10,7 +10,9 @@ models' plain paths (``kernels/ops.py``), which is what the reference
 traces.  Prefill and decode are captured by ``fxgraph.capture``
 (``torch.export``); the train phase, the gradient of ``loss_fn``, by
 ``make_fx(functionalize(grad(loss_fn)), tracing_mode="fake")``, since
-``torch.export`` cannot take ``torch.func.grad``.  ``trace_zoo`` builds
+``torch.export`` cannot take ``torch.func.grad``.  ``trace_train_step``
+captures the framework's whole train step (loss, gradient and AdamW
+update) the same way.  ``trace_zoo`` builds
 one trace per family for ``EDagSuite`` union grids, ``model_grid_report``
 runs one ``suite_grid_report`` over them, and ``model_objects`` recovers
 placement objects from the vertices' labels for
@@ -169,6 +171,27 @@ def trace_model(name: str, phase: str = "prefill", *,
         if put_trace(g) is not None:
             _index_update(store / _INDEX_NAME, key, dg)
     return g
+
+
+def trace_train_step(name: str) -> EDag:
+    """The eDAG of the framework's own train step (``train.train_loop.
+    make_train_step`` under ``TrainConfig()``) on the reduced config, a
+    batch of 2 x 32 tokens (the tracing defaults): loss, gradient and
+    AdamW update together, captured from ``meta`` inputs as the train
+    phase is (``make_fx`` of the functionalized step), so no kernel runs.
+    Not stored in the trace store."""
+    from torch.fx.experimental.proxy_tensor import make_fx
+    from ..configs.base import TrainConfig
+    from ..train.optimizer import adamw_init
+    from ..train.train_loop import make_train_step
+    api = _api(name, True)
+    step = make_train_step(api, TrainConfig())
+    params = api.abstract()
+    batch = api.input_specs(ShapeConfig("trace", 32, 2, "train"))
+    gm = make_fx(torch.func.functionalize(step), tracing_mode="fake")(
+        params, adamw_init(params), batch)
+    return edag_from_graph(gm, mem_threshold_bytes=DEFAULT_MEM_THRESHOLD,
+                           scan_unroll_limit=DEFAULT_UNROLL)
 
 
 def trace_zoo(phase: str = "prefill",

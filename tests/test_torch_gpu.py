@@ -833,3 +833,63 @@ def test_model_request_on_rung_0_on_the_card(card, tmp_path, monkeypatch):
     (host,) = AnalysisService(start=False, backoff_s=0.0).process(
         [request("cpu")])
     assert _same_reports(res.report, host.report)
+
+
+def test_training_route_differentiates_on_the_card(card):
+    """Inside ``ops.differentiable()`` a CUDA call that autograd
+    differentiates takes the plain version (no K4 launch) and its gradient
+    is the host's; outside it the same call still raises."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention
+    q = torch.randn(1, 8, 2, 16, generator=torch.Generator().manual_seed(0))
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        x = q.to(dev, copy=True).requires_grad_(True)
+        n0 = flash_attention.launches
+        with ops.differentiable():
+            ops.flash_attention(x, x, x, block_kv=4).sum().backward()
+        assert flash_attention.launches == n0
+        grads[dev] = x.grad.cpu()
+    assert torch.allclose(grads["cuda"], grads["cpu"], rtol=1e-4, atol=1e-5)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.flash_attention(q.to(card).requires_grad_(True), q.to(card),
+                            q.to(card))
+
+
+def test_train_step_on_the_card_matches_the_host_and_launches_nothing(card):
+    """One train step of reduced qwen3-0.6b and zamba2-7b on the card: the
+    host's loss and parameters (TF32 off), and none of the model kernels
+    launched."""
+    from repro_torch.configs import ARCHS, TrainConfig
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd import ssd
+    from repro_torch.models import get_model
+    from repro_torch.models.module import (init_params_numpy,
+                                           params_from_numpy, tree_leaves)
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.train.train_loop import make_train_step
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for name in ("qwen3-0.6b", "zamba2-7b"):
+            api = get_model(ARCHS[name].reduced())
+            npp = init_params_numpy(api.specs(), 0)
+            rng = np.random.default_rng(1)
+            nb = {k: rng.integers(0, 256, (2, 16)).astype(np.int32)
+                  for k in ("tokens", "labels")}
+            step = make_train_step(api, TrainConfig(warmup_steps=0))
+            out = {}
+            n0 = (flash_attention.launches, ssd.launches)
+            for dev in ("cpu", "cuda"):
+                p = params_from_numpy(npp, dev)
+                b = {k: torch.from_numpy(v).to(dev) for k, v in nb.items()}
+                p2, _, m = step(p, adamw_init(p), b)
+                out[dev] = (float(m["loss"]), [x.cpu() for x in
+                                               tree_leaves(p2)])
+            assert (flash_attention.launches, ssd.launches) == n0
+            assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-5 * out["cpu"][0]
+            for a, b in zip(out["cuda"][1], out["cpu"][1]):
+                assert a.device.type == "cpu"
+                assert torch.allclose(a, b, rtol=2e-3, atol=2e-3)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
