@@ -179,7 +179,27 @@ Phases, each timed; any failure ends the run with a non-zero exit:
              inputs): ``report`` and a sweep grid under ``("cuda",
              "float32")``, W >= D >= 1 and 0 <= Lambda <= 1, K1 launched,
              no replay chunk on the host.
-13. report — the card line, the ``{"kernels": [...]}`` line, and last the
+13. dryrun — the dry-run (``repro_torch.launch.dryrun``): (a) each cell
+             of ``src/repro_torch/configs/dryrun_expected.json`` (the JAX
+             package's ``run_cell`` on 256 or 512 fake devices) through the
+             port's ``run_cell`` without its per-device step: ``skipped``,
+             the collectives, per-axis lambda, HLO FLOPs and bytes (the
+             reference's compiled text through ``core/hlo.py``, K1 on the
+             card for the per-axis depths) and the model FLOPs equal, XLA's
+             argument, alias and output bytes exact, seconds per cell;
+             (b) qwen3-0.6b on the card's 1x1 mesh (float32 masters,
+             bf16 compute) at phase "train"'s shape, batch 8 x 128, where
+             the end of AdamW sets the peak, and at 8 x 1024, where the
+             activations do, each with ``remat="block"`` and ``"none"``:
+             the dry-run's estimated peak (argument + temp, from the step
+             run on ``meta`` tensors) against
+             ``torch.cuda.max_memory_allocated()`` over one real step
+             after a warm-up step, within ``DRYRUN_PEAK_RATIO`` in all
+             four, and at 8 x 1024 "block"'s estimate below "none"'s;
+             ``FlopCounterMode``'s FLOPs beside 6·N·tokens; the measured
+             step ms beside the roofline's compute and memory seconds on
+             the H100's rates.
+14. report — the card line, the ``{"kernels": [...]}`` line, and last the
              ``{"ok": true, "device": {...}}`` line.
 
 Usage: python3 chip_smoke.py   (from the root of a checkout, one card)
@@ -199,8 +219,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
-F32_OPS_PER_S = 67e12              # H100 SXM float32 outside tensor cores
+#: the H100 SXM's device memory rate and float32 (outside the tensor
+#: cores) and dense bf16 rates: ``configs.base.HW``'s, set in ``main``
+HBM_BYTES_PER_S = F32_OPS_PER_S = BF16_OPS_PER_S = None
 
 
 def card_line() -> str:
@@ -899,7 +920,6 @@ ATT_SERVE_SHAPES = (("qwen3-0.6b", 128, 128, 16, 8, 128, True),
                     ("seamless encoder", 128, 128, 16, 16, 64, False),
                     ("seamless decoder", 128, 128, 16, 16, 64, True),
                     ("seamless cross Te=384", 128, 384, 16, 16, 64, False))
-BF16_OPS_PER_S = 989e12            # H100 SXM dense bf16 tensor cores
 #: keys per KV tile of K4's kernels (``csrc/flash_attention.cu``), by dtype
 ATT_BLOCK_KV = {"float32": 64, "bfloat16": 128}
 
@@ -3003,7 +3023,187 @@ def run_train(expected: dict, card: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------- dryrun phase
+
+#: the dry-run's estimated peak over the measured one, either remat mode
+DRYRUN_PEAK_RATIO = (0.9, 1.1)
+#: (batch, seq) of (b): phase "train"'s, where the end of AdamW sets the
+#: peak, and one where the activations do
+DRYRUN_HOST_SHAPES = ((TRAIN_BATCH, TRAIN_SEQ), (8, 1024))
+DRYRUN_EQUAL = ("hlo_flops_per_device", "hlo_bytes_per_device",
+                "collectives", "per_axis_lambda", "model_flops_global",
+                "model_flops_per_device", "useful_flops_ratio")
+DRYRUN_MEMORY = ("argument_size_in_bytes", "alias_size_in_bytes",
+                 "output_size_in_bytes")
+
+
+def dryrun_cells(expected: dict) -> dict:
+    """(a) Each fixture cell through the port's ``run_cell`` (no
+    per-device step): every HLO-derived value and the model FLOPs equal
+    to the JAX package's, the memory bytes exact, K1 launched for the
+    per-axis depths of every cell with collectives."""
+    from repro_torch.launch import dryrun
+    out = {}
+    for name, e in sorted(expected["cells"].items()):
+        want = e["artifact"]
+        with k1_counts() as k1:
+            got = dryrun.run_cell(e["arch"], e["shape"], e["mesh"],
+                                  step=False)
+        if "skipped" in want:
+            if got != want:
+                raise SystemExit(f"dry-run {name}: {got}, not {want}")
+            out[name] = dict(skipped=True, seconds=k1.seconds)
+            print(f"  dryrun {name}: skipped, {k1.seconds:.2f} s",
+                  flush=True)
+            continue
+        for key in DRYRUN_EQUAL:
+            if jsonable(got[key]) != want[key]:
+                raise SystemExit(f"dry-run {name}: {key} {got[key]} is not "
+                                 f"the JAX package's {want[key]}")
+        for key in DRYRUN_MEMORY:
+            if got["memory_analysis"][key] != want["memory_analysis"][key]:
+                raise SystemExit(f"dry-run {name}: {key} "
+                                 f"{got['memory_analysis'][key]} is not the "
+                                 f"JAX package's "
+                                 f"{want['memory_analysis'][key]}")
+        if got["collectives"]["total"]["count"] > 0 and k1.grids <= 0:
+            raise SystemExit(f"dry-run {name}: K1 never launched")
+        out[name] = dict(k1.row(), collectives=got["collectives"]["total"],
+                         roofline=got["roofline"])
+        print(f"  dryrun {name}: {json.dumps(out[name])}", flush=True)
+    return out
+
+
+def measured_step_peak(api, batch, reps: int = 3) -> dict:
+    """One warm-up step, then ``torch.cuda.max_memory_allocated()`` over
+    one real train step of ``api`` on the card (float32 masters from seed
+    0, the launcher's ``TrainConfig``), less what was allocated before it
+    other than the step's own inputs; then the median of ``reps`` timed
+    steps."""
+    import torch
+    from repro_torch.configs import TrainConfig
+    from repro_torch.models.module import tree_leaves
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.train.train_loop import make_train_step
+    step = make_train_step(api, TrainConfig())
+    params = api.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
+    opt = adamw_init(params)
+    inputs = sum(x.untyped_storage().nbytes() for x in
+                 tree_leaves(params) + tree_leaves(opt.mu) +
+                 tree_leaves(opt.nu) + [opt.step] + list(batch.values()))
+    out = step(params, opt, batch)                  # warm-up
+    float(out[2]["loss"])
+    del out
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = step(params, opt, batch)
+    float(out[2]["loss"])
+    peak = torch.cuda.max_memory_allocated()
+    del out
+    ms = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(params, opt, batch)
+        float(out[2]["loss"])
+        ms.append(1e3 * (time.perf_counter() - t0))
+        del out
+    del params, opt
+    torch.cuda.empty_cache()
+    return dict(peak_bytes=peak - (base - inputs), raw_peak_bytes=peak,
+                allocated_before=base, input_bytes=inputs,
+                step_ms=sorted(ms)[len(ms) // 2], step_ms_all=ms)
+
+
+def dryrun_host(card: str) -> dict:
+    """(b) ``TRAIN_ARCH`` on the card's 1x1 mesh at each of
+    ``DRYRUN_HOST_SHAPES``: the dry-run's estimate (argument + temp)
+    against the measured peak of one real step, for ``remat="block"``
+    and ``"none"``, each held within ``DRYRUN_PEAK_RATIO``; at the shape
+    where the activations set the peak, remat "block"'s estimate must be
+    below "none"'s."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.launch import dryrun
+    from repro_torch.models import get_model
+    base = ARCHS[TRAIN_ARCH]
+    n = get_model(base).n_params()
+    out = {}
+    for (b, t), reps in zip(DRYRUN_HOST_SHAPES, (3, 1)):
+        shape = ShapeConfig("train_host", t, b, "train")
+        data = SyntheticLMData(vocab_size=base.padded_vocab(), seq_len=t,
+                               global_batch=b, seed=0)
+        batch = {k: torch.from_numpy(v).cuda()
+                 for k, v in data.batch(0).items()}
+        rows = {}
+        for mode in ("block", "none"):
+            t0 = time.perf_counter()
+            art = dryrun.run_cell(TRAIN_ARCH, shape, "host",
+                                  overrides={"remat": mode})
+            est_s = time.perf_counter() - t0
+            mem = art["memory_analysis"]
+            est = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+            meas = measured_step_peak(
+                get_model(dataclasses.replace(base, remat=mode)), batch,
+                reps=reps)
+            ratio = est / meas["peak_bytes"]
+            roof = art["roofline"]
+            row = dict(estimated_peak_bytes=est, ratio=ratio,
+                       argument_bytes=mem["argument_size_in_bytes"],
+                       temp_bytes=mem["temp_size_in_bytes"],
+                       flop_counter_flops=art["cost_analysis"]["flops"],
+                       six_n_tokens=6.0 * n * b * t,
+                       bytes_accessed=art["cost_analysis"]["bytes accessed"],
+                       roofline_compute_ms=1e3 * roof["compute_s"],
+                       roofline_memory_ms=1e3 * roof["memory_s"],
+                       estimate_s=est_s, **meas)
+            rows[mode] = row
+            print(f"  dryrun host {b}x{t} remat={mode}: estimated peak "
+                  f"{est / 2**30:.3f} GiB, measured "
+                  f"{meas['peak_bytes'] / 2**30:.3f} GiB (ratio "
+                  f"{ratio:.4f}); FlopCounterMode "
+                  f"{row['flop_counter_flops']:.4g} FLOPs, 6NT "
+                  f"{row['six_n_tokens']:.4g}; step {meas['step_ms']:.1f} "
+                  f"ms, roofline compute {row['roofline_compute_ms']:.2f} "
+                  f"ms, memory {row['roofline_memory_ms']:.2f} ms ({card}); "
+                  f"{json.dumps(row)}", flush=True)
+            lo, hi = DRYRUN_PEAK_RATIO
+            if not lo <= ratio <= hi:
+                raise SystemExit(f"dry-run {b}x{t} remat={mode}: the "
+                                 f"estimated peak is {ratio:.4f} of the "
+                                 f"measured one, outside "
+                                 f"{DRYRUN_PEAK_RATIO}")
+        out[f"{b}x{t}"] = rows
+        del batch
+        torch.cuda.empty_cache()
+    b, t = DRYRUN_HOST_SHAPES[1]
+    big = out[f"{b}x{t}"]
+    if not big["block"]["estimated_peak_bytes"] < \
+            big["none"]["estimated_peak_bytes"]:
+        raise SystemExit(f"dry-run {b}x{t}: remat \"block\" estimates "
+                         f"{big['block']['estimated_peak_bytes']} bytes, "
+                         f"not below \"none\"'s "
+                         f"{big['none']['estimated_peak_bytes']}")
+    return out
+
+
+def run_dryrun(expected: dict, card: str) -> dict:
+    """Phase "dryrun": (a) ``dryrun_cells``, (b) ``dryrun_host``."""
+    t0 = time.perf_counter()
+    out = dict(cells=dryrun_cells(expected))
+    out["cells_s"] = time.perf_counter() - t0
+    out["host"] = dryrun_host(card)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
+    global HBM_BYTES_PER_S, F32_OPS_PER_S, BF16_OPS_PER_S
     try:
         import torch
     except ImportError:
@@ -3030,6 +3230,9 @@ def main() -> int:
                  "EDAN_MAX_RETRIES"):
         os.environ.pop(knob, None)
     import numpy as np  # noqa: F401
+    from repro_torch.configs.base import HW
+    HBM_BYTES_PER_S, F32_OPS_PER_S, BF16_OPS_PER_S = (
+        HW["hbm_bw"], HW["peak_flops_f32"], HW["peak_flops_bf16"])
     from repro_torch.apps import polybench
     from repro_torch.core import backend as B
     from repro_torch.core.plan import ExecPolicy
@@ -3227,6 +3430,18 @@ def main() -> int:
         train_res = run_train(train_expected, card)
         train_res["seconds"] = time.perf_counter() - t_train
 
+    dryrun_expected = json.loads((SRC / "repro_torch" / "configs" /
+                                  "dryrun_expected.json").read_text())
+    with phase("dryrun"):
+        reset_counts()
+        dryrun_res = run_dryrun(dryrun_expected, card)
+        dryrun_counts = read_counts()
+        launches_dryrun = dryrun_counts.pop("level_step")
+        if launches_dryrun <= 0 or any(dryrun_counts.values()):
+            raise SystemExit(f"the dry-run launched level_step "
+                             f"{launches_dryrun} times and the model "
+                             f"kernels {dryrun_counts}")
+
     with phase("report"):
         m = meas["gemm_replay_f32"]
         kern = dict(
@@ -3253,6 +3468,7 @@ def main() -> int:
             launches_frontend=frontend_launches,
             launches_zoo=launches_zoo,
             launches_train=train_res["edan"]["k1_grids"],
+            launches_dryrun=launches_dryrun,
             plain_ms_union=union_meas["narrow"]["union"]["plain_ms"],
             library_ms_union=union_meas["narrow"]["union"]["library_ms"],
             plain_ms_union_wide=union_meas["wide"]["union"]["plain_ms"],
@@ -3319,6 +3535,7 @@ def main() -> int:
         print(f"  frontend: {json.dumps(frontend_res)}", flush=True)
         print(f"  zoo: {json.dumps(zoo_res)}", flush=True)
         print(f"  train: {json.dumps(train_res)}", flush=True)
+        print(f"  dryrun: {json.dumps(dryrun_res)}", flush=True)
         print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
     # the last three lines: the card, the kernels, the verdict
     print(card_line(), flush=True)

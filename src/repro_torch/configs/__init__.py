@@ -20,7 +20,7 @@
   ``zoo_expected.json``: the reference package's results that
   ``chip_smoke.py``'s later phases are held to.
 """
-from .base import (FULL_ATTENTION_ONLY, SHAPES, ModelConfig, ShapeConfig,
+from .base import (FULL_ATTENTION_ONLY, HW, SHAPES, ModelConfig, ShapeConfig,
                    TrainConfig, shape_applicable)
 
 from .deepseek_67b import CONFIG as deepseek_67b
@@ -49,5 +49,5 @@ def get_config(name: str) -> ModelConfig:
     return ARCHS[name]
 
 
-__all__ = ["ModelConfig", "ShapeConfig", "TrainConfig", "SHAPES",
+__all__ = ["ModelConfig", "ShapeConfig", "TrainConfig", "SHAPES", "HW",
            "ARCHS", "get_config", "shape_applicable", "FULL_ATTENTION_ONLY"]

@@ -4,7 +4,9 @@ path and training framework read (``ModelConfig``, ``ShapeConfig``,
 ``SHAPES``, ``FULL_ATTENTION_ONLY``, ``shape_applicable``,
 ``TrainConfig``), copied so that the port imports nothing of the
 reference.  The reference's ``HW`` table is not copied: it holds one TPU
-generation's rates, and the dry-run that reads it is not ported yet.
+generation's rates.  ``HW`` here is the NVIDIA H100 SXM's, which the
+dry-run (``launch/dryrun.py``) divides by and ``chip_smoke.py``'s bounds
+read.
 
 ``ModelConfig.use_pallas`` stays so that the field names match, but the
 port does not consult it: ``kernels/ops.py`` dispatches on the device of
@@ -164,3 +166,16 @@ class TrainConfig:
     checkpoint_every: int = 100
     checkpoint_dir: str = "/tmp/repro_ckpt"
     keep_checkpoints: int = 3
+
+
+# NVIDIA H100 SXM5 80GB, per GPU, from NVIDIA's H100 Tensor Core GPU
+# datasheet: 989 TFLOP/s dense bf16 (its 1,979 is with 2:4 sparsity), 67
+# TFLOP/s float32, 3.35 TB/s and 80 GB of HBM3, and fourth-generation
+# NVLink's 900 GB/s, which it counts in both directions: 450 GB/s each way.
+HW = dict(
+    peak_flops_bf16=989e12,     # FLOP/s, dense bf16 on the tensor cores
+    peak_flops_f32=67e12,       # FLOP/s, float32 outside the tensor cores
+    hbm_bw=3.35e12,             # bytes/s
+    nvlink_bw_per_gpu=450e9,    # bytes/s, one direction
+    hbm_bytes=80e9,
+)

@@ -11,9 +11,10 @@ Usage:
 
 One card has no production mesh: ``--production-mesh`` and
 ``--multi-pod`` (the reference's SPMD layouts over 256 and 512 chips)
-raise, since the port's dry-run, which lowers against them, is not
-ported yet (ROADMAP A7).  The reference's ``--model-parallel`` has nothing
-to split on one card and is not taken.
+exit; the port's dry-run takes those meshes instead, a cell at a time:
+``python -m repro_torch.launch.dryrun --cell ARCH SHAPE pod|multipod``.
+The reference's ``--model-parallel`` has nothing to split on one card and
+is not taken.
 """
 from __future__ import annotations
 
@@ -114,9 +115,10 @@ def parser() -> argparse.ArgumentParser:
 def main(argv=None):
     args = parser().parse_args(argv)
     if args.production_mesh or args.multi_pod:
-        raise SystemExit("--production-mesh / --multi-pod: the port runs on "
-                         "one card; the production meshes come with the "
-                         "dry-run slice (ROADMAP A7), not yet ported")
+        raise SystemExit("--production-mesh / --multi-pod: the port trains "
+                         "on one card; for a production mesh run the "
+                         "dry-run: python -m repro_torch.launch.dryrun "
+                         "--cell ARCH SHAPE pod|multipod")
     cfg = ARCHS[args.arch]
     if args.reduced:
         cfg = cfg.reduced()

@@ -20,8 +20,10 @@ Where the reference's ``prefill`` computes the cross K/V twice (inside the
 decoder stack and again for the cache), the port keeps the stack's: the
 values are the same.  ``decode_step`` writes each layer's new key and
 value into the cache it is given, in place, as ``transformer.py`` does.
-Layers run in a Python loop where the reference scans; its sharding
-constraints and remat are dropped (one card).
+Layers run in a Python loop where the reference scans; each encoder and
+decoder block is rematerialised when a gradient is taken under
+``cfg.remat == "block"`` (``remat.py``), as the reference checkpoints its
+scan bodies.  Its sharding constraints are dropped (one card).
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ from ..kernels import ops as kops
 from .layers import (attention_decode, compute_dtype, cross_entropy,
                      embed_lookup, rms_norm, rope, swiglu)
 from .module import ParamSpec
+from . import remat
 
 
 # ------------------------------------------------------------------- specs
@@ -119,9 +122,12 @@ def encode(params, frame_embeds, cfg: ModelConfig):
     the encoder's output (B, Te, d) in the compute dtype."""
     h = frame_embeds.to(compute_dtype(cfg))
     positions = torch.arange(h.shape[1], device=h.device)
+
+    def body(hh, wb):
+        return encoder_block(hh, wb, cfg, positions)[0]
+
     for i in range(cfg.n_enc_layers):
-        h, _ = encoder_block(h, _layer(params["enc_blocks"], i), cfg,
-                             positions)
+        h = remat.block(cfg, body, h, _layer(params["enc_blocks"], i))
     return rms_norm(h, params["enc_ln_f"])
 
 
@@ -156,15 +162,20 @@ def decode_stack(params, tokens, enc_out, cfg: ModelConfig,
     cross K/V of the encoder's frames (L,B,Te,KV,hd)."""
     h = embed_lookup(params["embed"], tokens, compute_dtype(cfg))
     positions = torch.arange(h.shape[1], device=h.device)
+
+    def body(hh, wb, enc):
+        hh, kv, xkv = decoder_block(hh, wb, enc, cfg, positions)
+        return (hh, kv, xkv) if return_cache else (hh, None, None)
+
     ks, vs, xks, xvs = [], [], [], []
     for i in range(cfg.n_layers):
-        h, (k, v), (xk, xv) = decoder_block(
-            h, _layer(params["dec_blocks"], i), enc_out, cfg, positions)
+        h, kv, xkv = remat.block(cfg, body, h,
+                                 _layer(params["dec_blocks"], i), enc_out)
         if return_cache:
-            ks.append(k)
-            vs.append(v)
-            xks.append(xk)
-            xvs.append(xv)
+            ks.append(kv[0])
+            vs.append(kv[1])
+            xks.append(xkv[0])
+            xvs.append(xkv[1])
     h = rms_norm(h, params["ln_f"])
     logits = torch.einsum("btd,dv->btv", h,
                           params["lm_head"].to(h.dtype)).float()

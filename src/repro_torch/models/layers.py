@@ -17,6 +17,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .remat import checkpoint
+
 _NEG_INF = -1e30
 
 
@@ -87,8 +89,8 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
     m = torch.full((B, H, T), _NEG_INF, dtype=torch.float32, device=dev)
     l = torch.zeros((B, H, T), dtype=torch.float32, device=dev)
     acc = torch.zeros((B, H, T, hd), dtype=torch.float32, device=dev)
-    for i in range(S // C):
-        ks, vs = k[:, i * C:(i + 1) * C], v[:, i * C:(i + 1) * C]
+
+    def body(m, l, acc, q, ks, vs, i):
         s = _gqa_scores(q, ks) * scale                  # (B,H,T,C)
         kpos = i * C + torch.arange(C, device=dev)
         mask = torch.ones((T, C), dtype=torch.bool, device=dev)
@@ -102,7 +104,13 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
         corr = torch.exp(m - m_new)
         l = l * corr + p.sum(dim=-1)
         acc = acc * corr[..., None] + _gqa_out(p, vs).transpose(1, 2)
-        m = m_new
+        return m_new, l, acc
+
+    # the chunk body is rematerialised, as in the reference: without it the
+    # backward keeps every chunk's (B,H,T,C) probabilities
+    for i in range(S // C):
+        m, l, acc = checkpoint(body, m, l, acc, q, k[:, i * C:(i + 1) * C],
+                               v[:, i * C:(i + 1) * C], i)
     out = acc / torch.clamp_min(l[..., None], 1e-30)
     return out.transpose(1, 2).to(q.dtype)             # (B,T,H,hd)
 

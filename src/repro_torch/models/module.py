@@ -62,6 +62,34 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
+def tree_leaves_sorted(tree) -> list:
+    """The leaves of nested dicts with every dict's keys in sorted order:
+    the reference's ``jax.tree_util.tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree)
+                for leaf in tree_leaves_sorted(tree[k])]
+    return [tree]
+
+
+def value_and_grad(fn: Callable) -> Callable:
+    """``fn(params, *rest) -> (value, grads)``, the reference's
+    ``jax.value_and_grad`` over a parameter tree: ``torch.autograd.grad``
+    of the scalar ``fn`` over detached copies of ``params``' leaves, a
+    leaf that the value does not reach getting zeros.  Plain autograd,
+    not a torch.func transform: the rematerialised blocks
+    (``remat.py``) recompute under autograd only, and functorch's grad
+    would keep every intermediate of the backward alive until the
+    gradient returns."""
+    def run(params, *rest):
+        with torch.enable_grad():
+            q = tree_map(lambda x: x.detach().requires_grad_(), params)
+            value = fn(q, *rest)
+            grads = iter(torch.autograd.grad(value, tree_leaves(q),
+                                             materialize_grads=True))
+        return value.detach(), tree_map(lambda _: next(grads), params)
+    return run
+
+
 def _numpy_dtype(dtype: torch.dtype):
     if dtype == torch.float32:
         return np.float32

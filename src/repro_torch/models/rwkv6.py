@@ -9,7 +9,9 @@ decode state is O(1) in the sequence: the token-shift prevs and one K x V
 matrix per head.
 
 Parameters and state keep the reference's keys and stacked (L, ...)
-layouts; layers run in a Python loop where the reference scans.
+layouts; layers run in a Python loop where the reference scans, each
+block rematerialised when a gradient is taken under ``cfg.remat ==
+"block"`` (``remat.py``), as the reference checkpoints its scan body.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from ..configs.base import ModelConfig
 from ..kernels import ops as kops
 from .layers import compute_dtype, cross_entropy, embed_lookup, rms_norm
 from .module import ParamSpec
+from . import remat
 
 _LORA = 64
 
@@ -135,12 +138,20 @@ def forward(params, tokens, cfg: ModelConfig, state=None,
     B, T = tokens.shape
     h = embed_lookup(params["embed"], tokens, compute_dtype(cfg))
     blocks = params["blocks"]
+    keep = return_state or state is not None
+
+    def body(hh, wb, st):
+        if st is None:
+            st = _zero_state(cfg, B, hh.dtype, hh.device)
+        hh, st = block_apply(hh, wb, cfg, st)
+        return hh, (st if keep else None)
+
     new = []
     for i in range(cfg.n_layers):
         wb = {key: val[i] for key, val in blocks.items()}
-        st = (_zero_state(cfg, B, h.dtype, h.device) if state is None
+        st = (None if state is None
               else {key: val[i] for key, val in state.items()})
-        h, st = block_apply(h, wb, cfg, st)
+        h, st = remat.block(cfg, body, h, wb, st)
         new.append(st)
     h = rms_norm(h, params["ln_f"])
     logits = torch.einsum("btd,dv->btv", h,

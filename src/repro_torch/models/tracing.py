@@ -8,9 +8,11 @@ decode / train) into a finalized eDAG from ``meta`` inputs only
 allocated and no kernel runs, on any device — a ``meta`` tensor takes the
 models' plain paths (``kernels/ops.py``), which is what the reference
 traces.  Prefill and decode are captured by ``fxgraph.capture``
-(``torch.export``); the train phase, the gradient of ``loss_fn``, by
-``make_fx(functionalize(grad(loss_fn)), tracing_mode="fake")``, since
-``torch.export`` cannot take ``torch.func.grad``.  ``trace_train_step``
+(``torch.export``); the train phase, the gradient of ``loss_fn``
+(``module.value_and_grad``), by ``make_fx(..., tracing_mode="fake")`` and
+then ``make_fx`` of that graph functionalized (``_capture_grad``), since
+``torch.export`` cannot take the gradient and ``functionalize`` cannot
+take the rematerialised blocks (``remat.py``).  ``trace_train_step``
 captures the framework's whole train step (loss, gradient and AdamW
 update) the same way.  ``trace_zoo`` builds
 one trace per family for ``EDagSuite`` union grids, ``model_grid_report``
@@ -29,9 +31,10 @@ The eDAGs differ from the reference's where the two frameworks decompose
 the models differently (ROADMAP §C 15): the embedding is a gather, not the
 reference's one-hot contraction; ``torch.export`` keeps a multi-operand
 einsum as one node where ``jnp.einsum`` makes pairwise ``dot_general``\\ s;
-the encoder-decoder's prefill computes the cross K/V once; the train
-capture keeps no rematerialisation; a decode step's position is a
-constant of the trace.  ``model_summary`` is the counterpart of the
+the encoder-decoder's prefill computes the cross K/V once; a decode
+step's position is a constant of the trace.  The train capture keeps the
+reference's rematerialisation: each block's forward runs again in the
+backward.  ``model_summary`` is the counterpart of the
 reference's ``model_hlo_summary``: the same keys, from
 ``torch.utils.flop_counter`` and the eDAG, not from compiled HLO.
 """
@@ -53,7 +56,7 @@ from ..core.placement import PlacementObject
 from ..core.suite import EDagSuite
 from ..core.trace_store import get_trace, put_trace, trace_store_dir
 from . import get_model
-from .module import abstract_params
+from .module import abstract_params, value_and_grad
 
 PHASES = ("prefill", "decode", "train")
 
@@ -89,18 +92,28 @@ def _phase_fn(api, phase: str, seq_len: int, batch_size: int):
         cache = abstract_params(api.cache_specs(shape))
         return (lambda p, c, b: api.decode_fn(p, c, b),
                 (params, cache, batch))
-    grad = torch.func.grad(api.loss_fn)
-    return (lambda p, b: grad(p, b), (params, batch))
+    grad = value_and_grad(api.loss_fn)
+    return (lambda p, b: grad(p, b)[1], (params, batch))
 
 
 def _capture(phase: str, fn, args) -> torch.fx.GraphModule:
     """The functional ATen graph of one phase: ``torch.export`` for
-    prefill and decode, ``make_fx`` of the functionalized gradient for
-    train."""
+    prefill and decode, ``_capture_grad`` for train."""
     if phase != "train":
         return capture(fn, *args)
+    return _capture_grad(fn, args)
+
+
+def _capture_grad(fn, args) -> torch.fx.GraphModule:
+    """The functional ATen graph of a function that takes a gradient:
+    ``make_fx`` of it, then ``make_fx`` of that graph functionalized.
+    ``functionalize`` cannot take the rematerialised blocks'
+    ``autograd.Function`` (``remat.py``), but the first capture has
+    decomposed them into their forward, recompute and backward ops, so
+    the recompute stays in the graph."""
     from torch.fx.experimental.proxy_tensor import make_fx
-    return make_fx(torch.func.functionalize(fn), tracing_mode="fake")(*args)
+    gm = make_fx(fn, tracing_mode="fake")(*args)
+    return make_fx(torch.func.functionalize(gm), tracing_mode="fake")(*args)
 
 
 def _trace_key(name: str, phase: str, seq_len: int, batch_size: int,
@@ -178,9 +191,8 @@ def trace_train_step(name: str) -> EDag:
     make_train_step`` under ``TrainConfig()``) on the reduced config, a
     batch of 2 x 32 tokens (the tracing defaults): loss, gradient and
     AdamW update together, captured from ``meta`` inputs as the train
-    phase is (``make_fx`` of the functionalized step), so no kernel runs.
+    phase is (``_capture_grad``), so no kernel runs.
     Not stored in the trace store."""
-    from torch.fx.experimental.proxy_tensor import make_fx
     from ..configs.base import TrainConfig
     from ..train.optimizer import adamw_init
     from ..train.train_loop import make_train_step
@@ -188,8 +200,7 @@ def trace_train_step(name: str) -> EDag:
     step = make_train_step(api, TrainConfig())
     params = api.abstract()
     batch = api.input_specs(ShapeConfig("trace", 32, 2, "train"))
-    gm = make_fx(torch.func.functionalize(step), tracing_mode="fake")(
-        params, adamw_init(params), batch)
+    gm = _capture_grad(step, (params, adamw_init(params), batch))
     return edag_from_graph(gm, mem_threshold_bytes=DEFAULT_MEM_THRESHOLD,
                            scan_unroll_limit=DEFAULT_UNROLL)
 

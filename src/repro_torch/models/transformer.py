@@ -12,8 +12,11 @@ The prefill attention (``block_apply``) goes through
 ``layers.attention_ref`` on the CPU.  Decode attends through
 ``layers.attention_decode``.  ``loss_fn`` differentiates through the
 plain path (``ops`` raises for a CUDA call that autograd would
-differentiate: the kernels have no backward).  The reference's sharding
-constraints, ``pin_weight_shards`` and remat are dropped (one card).
+differentiate: the kernels have no backward).  Each block is
+rematerialised when a gradient is taken under ``cfg.remat == "block"``
+(``remat.py``), as the reference's ``jax.checkpoint`` of its scan body.
+The reference's sharding constraints and ``pin_weight_shards`` are
+dropped (one card).
 
 ``prefill`` raises on a VLM prompt shorter than its prefix: the
 reference's ``forward`` then runs over the P prefix positions and none of
@@ -32,6 +35,7 @@ from .layers import (attention_decode, compute_dtype, cross_entropy,
                      embed_lookup, rms_norm, rope, swiglu)
 from .module import ParamSpec
 from . import moe as moe_mod
+from . import remat
 
 
 # ------------------------------------------------------------------- specs
@@ -133,14 +137,18 @@ def forward(params, tokens, cfg: ModelConfig, prefix_embeds=None,
         h = torch.cat([prefix_embeds.to(h.dtype), h[:, P:]], dim=1)
     T = h.shape[1]
     positions = torch.arange(T, device=h.device)
+
+    def body(hh, wb):
+        hh, kv, aux = block_apply(hh, wb, cfg, positions)
+        return hh, (kv if return_cache else None), aux
+
     ks, vs, auxes = [], [], []
     for li in range(cfg.n_layers):
-        h, (k, v), aux = block_apply(h, _layer(params["blocks"], li), cfg,
-                                     positions)
+        h, kv, aux = remat.block(cfg, body, h, _layer(params["blocks"], li))
         auxes.append(aux)
         if return_cache:
-            ks.append(k)
-            vs.append(v)
+            ks.append(kv[0])
+            vs.append(kv[1])
     h = rms_norm(h, params["ln_f"])
     logits = torch.einsum("btd,dv->btv", h,
                           params["lm_head"].to(h.dtype)).float()

@@ -10,6 +10,9 @@ caches for the shared block.  A prompt's shared attention goes through
 decode step's through ``layers.attention_decode``.  ``decode_step``
 writes the new key and value into the caches it is given, in place,
 where the reference builds new arrays; it returns the same tensors.
+Each Mamba2 block is rematerialised when a gradient is taken under
+``cfg.remat == "block"`` (``remat.py``), as the reference checkpoints
+its block scan's body; the shared attention is not.
 """
 from __future__ import annotations
 
@@ -20,7 +23,7 @@ from ..kernels import ops as kops
 from .layers import (attention_decode, compute_dtype, cross_entropy,
                      embed_lookup, rms_norm, rope)
 from .module import ParamSpec
-from . import mamba2
+from . import mamba2, remat
 
 
 def _split(cfg: ModelConfig):
@@ -119,14 +122,18 @@ def forward(params, tokens, cfg: ModelConfig, state=None, kv_caches=None,
     decode = state is not None
     want_state = decode or return_state
 
+    def blk(hh, wb, bst):
+        hh, bst = mamba2.block_apply(hh, wb, cfg, bst)
+        return hh, (bst if want_state else None)
+
     def blocks(hh, weights, n, st_of):
         new = []
         for i in range(n):
             bst = (st_of(i) if decode else
                    mamba2.zero_state(cfg, B, hh.dtype, dev))
-            hh, bst = mamba2.block_apply(hh, _layer(weights, i), cfg, bst)
+            hh, bst = remat.block(cfg, blk, hh, _layer(weights, i), bst)
             new.append(bst)
-        return hh, _stack(new) if new else None
+        return hh, (_stack(new) if new and want_state else None)
 
     kvs, g_states = [], []
     for g in range(n_full):

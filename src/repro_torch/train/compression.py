@@ -17,7 +17,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from ..models.module import tree_leaves, tree_map
+from ..models.module import tree_leaves, tree_map, value_and_grad
 
 
 def _world(group) -> int:
@@ -81,10 +81,10 @@ def make_dp_train_step(loss_fn, update_fn, group=None,
     loss_fn(params, batch)->scalar; update_fn(params, grads, opt)->(p,opt).
     Returns step(params, opt, err, batch)->(params, opt, err, loss), the
     loss averaged over the ranks."""
-    grad_and_loss = torch.func.grad_and_value(loss_fn)
+    loss_and_grad = value_and_grad(loss_fn)
 
     def step(params, opt, err, batch):
-        grads, loss = grad_and_loss(params, batch)
+        loss, grads = loss_and_grad(params, batch)
         n = _world(group)
         loss = _all_reduce(loss.detach().clone(), dist.ReduceOp.SUM,
                            group) / n

@@ -1,8 +1,12 @@
 """AdamW + cosine schedule + global-norm clipping over trees of tensors,
 the reference package's ``train/optimizer.py`` in the same float32
 arithmetic and order: the clip scale, the bias corrections, weight decay
-on the float32 master, the cast back to the parameter's dtype.  No torch
-optimizer class: the update is a pure function of (params, grads, state).
+on the float32 master, the cast back to the parameter's dtype, and the
+global norm summed over the leaves in the reference's order (dict keys
+sorted at every level).  Only the per-leaf reduction is torch's own: a
+leaf's sum of squares cannot be made bitwise equal to XLA's, so the two
+packages' norms agree to rounding.  No torch optimizer class: the update
+is a pure function of (params, grads, state).
 """
 from __future__ import annotations
 
@@ -12,7 +16,7 @@ from typing import NamedTuple
 import torch
 
 from ..configs.base import TrainConfig
-from ..models.module import tree_leaves, tree_map
+from ..models.module import tree_leaves, tree_leaves_sorted, tree_map
 
 
 class AdamState(NamedTuple):
@@ -44,8 +48,10 @@ def cosine_lr(tc: TrainConfig, step) -> torch.Tensor:
 
 
 def global_norm(tree) -> torch.Tensor:
+    """sqrt of the sum of every leaf's float32 sum of squares, added in
+    the reference's leaf order (``tree_leaves_sorted``)."""
     return torch.sqrt(sum(torch.sum(torch.square(leaf.to(torch.float32)))
-                          for leaf in tree_leaves(tree)))
+                          for leaf in tree_leaves_sorted(tree)))
 
 
 def adamw_update(params, grads, state: AdamState, tc: TrainConfig):

@@ -1,5 +1,11 @@
 """Train-step factory: value-and-grad + grad accumulation + AdamW, the
-reference package's ``train/train_loop.py`` on autograd (``torch.func``).
+reference package's ``train/train_loop.py`` on autograd.
+
+The gradient is ``models.module.value_and_grad``: ``torch.autograd.grad``
+of the loss over detached copies of the parameters, not a torch.func
+transform, whose backward would keep every intermediate alive until the
+gradient returns and so cost more memory than the blocks'
+rematerialisation (``models/remat.py``) saves.
 
 The step differentiates the reference's own training math: it runs the
 model's loss inside ``kernels.ops.differentiable()``, so attention and the
@@ -20,7 +26,7 @@ import torch
 from ..configs.base import TrainConfig
 from ..kernels import ops
 from ..models import ModelApi
-from ..models.module import tree_map
+from ..models.module import tree_map, value_and_grad
 from ..sharding import PartitionSpec, param_partition_specs
 from ..sharding.rules import DEFAULT_RULES
 from .optimizer import AdamState, adamw_update
@@ -42,14 +48,10 @@ def make_train_step(api: ModelApi, tc: TrainConfig):
             # masters through the cast
             p = tree_map(lambda x: x.to(torch.bfloat16)
                          if x.dtype == torch.float32 and x.ndim > 1 else x, p)
-        return api.loss_fn(p, b)
-
-    grad_and_loss = torch.func.grad_and_value(loss_fn)
-
-    def value_and_grad(p, b):
         with ops.differentiable():
-            g, loss = grad_and_loss(p, b)
-        return loss.detach(), g
+            return api.loss_fn(p, b)
+
+    loss_and_grad = value_and_grad(loss_fn)
 
     def train_step(params, opt_state: AdamState, batch):
         mb = tc.microbatches
@@ -64,13 +66,13 @@ def make_train_step(api: ModelApi, tc: TrainConfig):
             for i in range(mb):
                 part = {k: x.reshape(mb, x.shape[0] // mb, *x.shape[1:])[i]
                         for k, x in batch.items()}
-                l, g = value_and_grad(params, part)
+                l, g = loss_and_grad(params, part)
                 grads = tree_map(torch.add, grads, g)
                 loss = loss + l
             grads = tree_map(lambda g: g / mb, grads)
             loss = loss / mb
         else:
-            loss, grads = value_and_grad(params, batch)
+            loss, grads = loss_and_grad(params, batch)
         params, opt_state, metrics = adamw_update(params, grads, opt_state, tc)
         metrics["loss"] = loss
         return params, opt_state, metrics

@@ -12,9 +12,10 @@ not ground truth for the port, ROADMAP §C 2).
   einsums (``jnp.einsum`` makes pairwise ``dot_general``\\ s, ``torch.export``
   one node; measured by tracing the chunked recurrence alone in both
   frontends), the encoder-decoder prefill's second cross K/V (the port
-  computes it once) and, in the train phase, the reference's
-  rematerialisation (compared with ``jax.checkpoint`` made the identity:
-  the port's train capture keeps none).
+  computes it once) and, in the train phase, the recompute's dead products
+  (both packages rematerialise each block and attention chunk; the
+  reference's dead-code elimination drops the recomputed products whose
+  output the backward does not read, the port's recompute runs them).
 * The train trace is more than twice the prefill trace.
 * Model grids: the port's union suite against solo grids bit for bit
   (the reference's property test), and the port's eDAGs analysed alike,
@@ -183,7 +184,42 @@ def named_gap(name: str, phase: str) -> dict:
         out["second cross K/V"] = (cfg.n_layers * 2 *
                                    (2 * B * Te * cfg.d_model *
                                     cfg.n_kv_heads * cfg.hd))
+    if phase == "train":
+        if "multi-operand einsums" in out:
+            # the recompute runs each block's recurrence forward once more
+            out["multi-operand einsums"] += cfg.n_layers * recurrence_gap(
+                cfg, "prefill")
+        out["dead recomputed products"] = -dead_recompute(cfg)
     return out
+
+
+def dead_recompute(cfg) -> float:
+    """``dot_general`` FLOPs that the port's rematerialisation recomputes
+    and the reference's does not: the backward reads the inputs of a
+    rematerialised body's last product, never its output, so the
+    reference's dead-code elimination drops that product from the
+    recompute (a dense FFN's down projection, a Mamba2 block's output
+    projection, an attention chunk's P.V), where the port's recompute runs
+    the body whole.  An MoE block ends in the routing combine and an
+    RWKV6 block in the gated channel mix, whose backward reads both
+    products' outputs."""
+    def pv(Tq, S):                                  # one attention's P.V
+        return 2 * B * cfg.padded_heads * Tq * S * cfg.hd
+
+    ffn = lambda n: 2 * B * n * cfg.d_ff * cfg.d_model   # noqa: E731
+    if cfg.family in ("dense", "vlm", "moe"):
+        return cfg.n_layers * (pv(T, T) + (0 if cfg.n_experts else ffn(T)))
+    if cfg.family == "encdec":
+        Te = get_model(cfg).enc_len(ShapeConfig("t", T, B, "train"))
+        return (cfg.n_enc_layers * (pv(Te, Te) + ffn(Te)) +
+                cfg.n_layers * (pv(T, T) + pv(T, Te) + ffn(T)))
+    if cfg.family == "hybrid":
+        from repro_torch.models.zamba2 import _split
+        _, n_full, tail = _split(cfg)
+        d_in = mamba2.dims(cfg)[0]
+        return (cfg.n_layers * 2 * B * T * d_in * cfg.d_model +
+                (n_full + (1 if tail else 0)) * pv(T, T))
+    return 0.0
 
 
 @pytest.mark.parametrize("name", NAMES)
@@ -197,17 +233,17 @@ def test_dot_flops_equal_reference_less_named_differences(name, phase):
 
 @pytest.mark.parametrize("name", NAMES)
 def test_train_dot_flops_equal_reference_less_named_differences(name):
-    """With the reference's rematerialisation off (``jax.checkpoint`` the
-    identity) the gap is the named one; the reference's own train trace
-    adds its recomputed forward products on top."""
+    """The reference's own train trace, rematerialisation on, less the
+    port's is the named gap; the reference's rematerialisation is real
+    (its trace with ``jax.checkpoint`` made the identity has fewer
+    products) and so is the port's: every forward product, its two
+    backward products and the rematerialised forward again."""
     gap = named_gap(name, "train")
     port = dot_flops(port_trace(name, "train"))
-    no_remat = dot_flops(ref_trace(name, "train", remat=False))
-    assert no_remat - port == sum(gap.values()), gap
-    assert dot_flops(ref_trace(name, "train")) > no_remat
-    # the port's train step: every forward product and its two backward
-    # products (none of the forward's operands is a constant)
-    assert port == 3 * dot_flops(_forward_trace(name))
+    ref = dot_flops(ref_trace(name, "train"))
+    assert ref - port == sum(gap.values()), gap
+    assert ref > dot_flops(ref_trace(name, "train", remat=False))
+    assert port > 3 * dot_flops(_forward_trace(name))
 
 
 @functools.lru_cache(maxsize=None)

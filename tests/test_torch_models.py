@@ -6,7 +6,7 @@ without token drops, internvl2 with a patch prefix, mixtral's
 sliding-window cache, deepseek-coder's padded heads) at reduced width with
 the reference's ``init`` weights carried across by ``params_from_numpy``;
 the MoE dispatch's slots, gates and drops; ``cross_entropy`` and every
-family's ``loss_fn`` with its gradient (``torch.func.grad`` against
+family's ``loss_fn`` with its gradient (``module.value_and_grad`` against
 ``jax.grad``).
 
 Both packages run the same float32 algorithm at reduced width (the
@@ -35,7 +35,7 @@ from repro_torch.configs.base import ShapeConfig
 from repro_torch.models import PORTED, get_model
 from repro_torch.models.module import (init_params, init_params_numpy,
                                        param_bytes, params_from_numpy,
-                                       tree_leaves)
+                                       tree_leaves, value_and_grad)
 
 
 @pytest.fixture(autouse=True)
@@ -417,8 +417,7 @@ def test_loss_and_grad_match_reference(name):
         rb["frame_embeds"], pb["frame_embeds"] = (jnp.asarray(fe),
                                                   torch.from_numpy(fe))
     want, rgrad = jax.value_and_grad(rapi.loss_fn)(rp, rb)
-    got = api.loss_fn(p, pb)
-    grad = torch.func.grad(api.loss_fn)(p, pb)
+    got, grad = value_and_grad(api.loss_fn)(p, pb)
     assert abs(float(got) - float(want)) <= TOL * abs(float(want))
     leaves = _leaves_with_paths(rgrad, grad)
     assert len(leaves) == len(tree_leaves(grad))

@@ -197,6 +197,30 @@ def _close(got, want, tol=1e-6):
     assert np.abs(got - want).max() <= tol * max(np.abs(want).max(), 1.0)
 
 
+def _path_tree(tree, prefix=()):
+    """The tree with every leaf replaced by its path."""
+    if isinstance(tree, dict):
+        return {k: _path_tree(v, prefix + (k,)) for k, v in tree.items()}
+    return "/".join(prefix)
+
+
+@pytest.mark.parametrize("name", sorted({c.name for c in ARCHS.values()}))
+def test_global_norm_sums_in_the_references_leaf_order(name):
+    """ROADMAP C 20: ``global_norm`` adds the leaves in
+    ``jax.tree_util.tree_leaves``'s order (dict keys sorted at every
+    level), and on every family's reduced tree the two packages' norms
+    agree within 1e-6, relative."""
+    from repro_torch.models.module import init_params_numpy, tree_leaves_sorted
+    api = get_model(ARCHS[name].reduced())
+    paths = _path_tree(api.specs())
+    assert tree_leaves_sorted(paths) == jax.tree_util.tree_leaves(paths)
+    assert tree_leaves_sorted(paths) != tree_leaves(paths)
+    g = init_params_numpy(api.specs(), seed=3)
+    got = float(global_norm(params_from_numpy(g)))
+    want = float(ref_opt.global_norm(jax.tree_util.tree_map(jnp.asarray, g)))
+    assert got == pytest.approx(want, rel=1e-6)
+
+
 @pytest.mark.parametrize("grad_clip", [0.0, 1.0])
 def test_optimizer_matches_reference(grad_clip):
     """From the same params, gradients and moments, three updates of

@@ -276,12 +276,13 @@ def _port_grads(arch: str, microbatches: int) -> dict:
     import torch
     from repro_torch.configs import ARCHS
     from repro_torch.models import get_model
-    from repro_torch.models.module import params_from_numpy
+    from repro_torch.models.module import params_from_numpy, value_and_grad
     from repro_torch.train import checkpoint as ckpt
     cfg = ARCHS[arch].reduced()
     npp, batch = step_inputs(cfg)
+    grad = value_and_grad(get_model(cfg).loss_fn)
     return _microbatch_grads(
-        torch.func.grad(get_model(cfg).loss_fn), params_from_numpy(npp),
+        lambda p, b: grad(p, b)[1], params_from_numpy(npp),
         {k: torch.from_numpy(v) for k, v in batch.items()}, microbatches,
         lambda t: {k: v.numpy() for k, v in ckpt._flatten(t).items()})
 
