@@ -186,7 +186,10 @@ Phases, each timed; any failure ends the run with a non-zero exit:
              the collectives, per-axis lambda, HLO FLOPs and bytes (the
              reference's compiled text through ``core/hlo.py``, K1 on the
              card for the per-axis depths) and the model FLOPs equal, XLA's
-             argument, alias and output bytes exact, seconds per cell;
+             argument, alias and output bytes exact, the temp bytes
+             replayed from the text (``core.hlo.hlo_temp_bytes``) within
+             ``DRYRUN_TEMP_RATIO`` of XLA's and ``fits_hbm`` equal,
+             seconds per cell;
              (b) qwen3-0.6b on the card's 1x1 mesh (float32 masters,
              bf16 compute) at phase "train"'s shape, batch 8 x 128, where
              the end of AdamW sets the peak, and at 8 x 1024, where the
@@ -199,7 +202,26 @@ Phases, each timed; any failure ends the run with a non-zero exit:
              ``FlopCounterMode``'s FLOPs beside 6·N·tokens; the measured
              step ms beside the roofline's compute and memory seconds on
              the H100's rates.
-14. report — the card line, the ``{"kernels": [...]}`` line, and last the
+14. moe    — the MoE layer's multi-rank paths (``models/moe.py`` under a
+             ``RankMesh``, ``repro_torch.launch.moe_parallel``), ranks as
+             processes that share the card over ``gloo`` with their tensors
+             on it: (a) the CPU tests' case, reduced granite (d 64, 8
+             experts, top-2, capacity factor 8) on a (2, 4) mesh of 8 ranks:
+             "tp", "ep" and "tp" + ``moe_scatter_out`` within
+             ``MOE_TOL`` of the single-rank output and gradients of the
+             input and every weight, a mesh without groups bit for bit the
+             single-rank path; (b) granite-moe-1b-a400m at full width
+             (float32 masters from seed 0, bf16 compute) on a (1, 4) mesh
+             of 4 ranks, one prefill of 4 x 128 tokens in "tp", the
+             scatter and "ep" at capacity factor 4 (no pair can drop): each
+             block within ``SERVE_TOL`` of the single-rank block on the
+             same input (rank 0's, broadcast), the MoE outputs' and the
+             logits' differences reported; the dropped
+             pairs of one rank and of "ep" at the config's 1.25; per rank
+             ms per MoE layer, collectives and bytes per layer, K4
+             launches and peak memory.  The ranks contend for one card:
+             their times say nothing of four cards.
+15. report — the card line, the ``{"kernels": [...]}`` line, and last the
              ``{"ok": true, "device": {...}}`` line.
 
 Usage: python3 chip_smoke.py   (from the root of a checkout, one card)
@@ -3027,6 +3049,8 @@ def run_train(expected: dict, card: str) -> dict:
 
 #: the dry-run's estimated peak over the measured one, either remat mode
 DRYRUN_PEAK_RATIO = (0.9, 1.1)
+#: the temp bytes replayed from a fixture cell's text over XLA's
+DRYRUN_TEMP_RATIO = (0.8, 1.25)
 #: (batch, seq) of (b): phase "train"'s, where the end of AdamW sets the
 #: peak, and one where the activations do
 DRYRUN_HOST_SHAPES = ((TRAIN_BATCH, TRAIN_SEQ), (8, 1024))
@@ -3068,8 +3092,19 @@ def dryrun_cells(expected: dict) -> dict:
                                  f"{want['memory_analysis'][key]}")
         if got["collectives"]["total"]["count"] > 0 and k1.grids <= 0:
             raise SystemExit(f"dry-run {name}: K1 never launched")
+        temp = got["memory_analysis"]["temp_size_in_bytes"]
+        ratio = temp / want["memory_analysis"]["temp_size_in_bytes"]
+        lo, hi = DRYRUN_TEMP_RATIO
+        if not lo <= ratio <= hi or got["fits_hbm"] != want["fits_hbm"]:
+            raise SystemExit(f"dry-run {name}: temp {temp} is {ratio:.4f} "
+                             f"of XLA's (bound {DRYRUN_TEMP_RATIO}), fits "
+                             f"{got['fits_hbm']} against "
+                             f"{want['fits_hbm']}")
         out[name] = dict(k1.row(), collectives=got["collectives"]["total"],
-                         roofline=got["roofline"])
+                         roofline=got["roofline"], temp_bytes=temp,
+                         temp_ratio=ratio,
+                         hbm_per_device_bytes=got["hbm_per_device_bytes"],
+                         fits_hbm=got["fits_hbm"])
         print(f"  dryrun {name}: {json.dumps(out[name])}", flush=True)
     return out
 
@@ -3190,6 +3225,111 @@ def dryrun_host(card: str) -> dict:
                          f"not below \"none\"'s "
                          f"{big['none']['estimated_peak_bytes']}")
     return out
+
+
+# ---------------------------------------------------------------- moe phase
+
+#: the multi-rank outputs and gradients against one rank's, float32
+MOE_TOL = 1e-4
+
+
+def moe_equivalence(out_dir: str) -> dict:
+    """(a) The CPU tests' 8-rank case on the card (``launch.moe_parallel
+    --case equivalence``), held to the single-rank path."""
+    import numpy as np
+    from repro_torch.launch import moe_parallel as mp
+    t0 = time.perf_counter()
+    rcs = mp.launch("equivalence", out_dir, device="cuda", timeout=300)
+    if rcs != [0] * 8:
+        raise SystemExit(f"moe equivalence: ranks exited {rcs}")
+
+    def key(tag, what):
+        return f"y_{tag}" if what == "y" else f"g_{tag}_{what}"
+
+    whats = ("y", "x") + mp.WEIGHTS
+    worst = {}
+    for r in range(8):
+        res = np.load(os.path.join(out_dir, f"rank{r}.npz"))
+        if str(res["device"]) != "cuda":
+            raise SystemExit(f"moe equivalence: rank {r} ran on "
+                             f"{res['device']}")
+        for what in whats:
+            one = res[key("single", what)]
+            for tag, _ in mp.MODES:
+                err = float(np.abs(res[key(tag, what)] - one).max())
+                worst[tag] = max(worst.get(tag, 0.0), err)
+            if not np.array_equal(res[key("groupless", what)], one):
+                raise SystemExit(f"moe equivalence: rank {r}'s {what} "
+                                 f"without groups is not the single-rank "
+                                 f"path's")
+        if int(res["collectives_without_groups"]):
+            raise SystemExit("moe equivalence: a mesh without groups ran "
+                             "collectives")
+    bad = {t: e for t, e in worst.items() if e > MOE_TOL}
+    if bad:
+        raise SystemExit(f"moe equivalence: {bad} exceed {MOE_TOL} against "
+                         f"one rank")
+    counts = json.loads(str(np.load(os.path.join(out_dir, "rank0.npz"))[
+        "counts"]))
+    return dict(worst_abs_err=worst, collectives_rank0=counts,
+                seconds=time.perf_counter() - t0)
+
+
+def moe_prefill(out_dir: str, card: str) -> dict:
+    """(b) granite-moe-1b-a400m at full width on 4 ranks sharing the card
+    (``launch.moe_parallel --case prefill``); each rank holds its blocks
+    to one rank's within ``moe_parallel.PREFILL_TOL`` (= ``SERVE_TOL``)."""
+    from repro_torch.launch import moe_parallel as mp
+    assert mp.PREFILL_TOL == SERVE_TOL
+    t0 = time.perf_counter()
+    rcs = mp.launch("prefill", out_dir, device="cuda", timeout=400)
+    if rcs != [0] * 4:
+        raise SystemExit(f"moe prefill: ranks exited {rcs}")
+    ranks = [json.loads(Path(out_dir, f"prefill_rank{r}.json").read_text())
+             for r in range(4)]
+    out = dict(config=ranks[0]["config"], mesh=ranks[0]["mesh"],
+               seconds=None, card=card)
+    for tag in ("single",) + tuple(t for t, _ in mp.MODES):
+        rows = [r[tag] for r in ranks]
+        row = dict(ms_per_moe_layer=[x["ms_per_moe_layer"] for x in rows],
+                   k4_launches=[x["k4_launches"] for x in rows],
+                   peak_bytes=[x["peak_bytes"] for x in rows],
+                   collectives_per_layer=rows[0]["collectives_per_layer"])
+        if tag != "single":
+            row.update(
+                worst_block_rel_err=max(x["worst_block_rel_err"]
+                                        for x in rows),
+                worst_moe_output_rel_err=max(x["worst_moe_output_rel_err"]
+                                             for x in rows),
+                blocks_checked=[x["blocks_checked"] for x in rows],
+                logits_rel_err=rows[0]["logits_rel_err"])
+            if any(x["k4_launches"] <= 0 for x in rows):
+                raise SystemExit(f"moe prefill {tag}: a rank never "
+                                 f"launched K4")
+        if tag == "ep":
+            row["dropped_pairs_own_capacity"] = rows[0][
+                "dropped_pairs_own_capacity"]
+        out[tag] = row
+        print(f"  moe prefill {tag} (4 ranks contending for one card; says "
+              f"nothing of four cards; {card}): {json.dumps(row)}",
+              flush=True)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def run_moe(card: str) -> dict:
+    """Phase "moe": (a) ``moe_equivalence``, (b) ``moe_prefill``."""
+    t0 = time.perf_counter()
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="moe-", dir=ROOT / "build") as d:
+        eq = moe_equivalence(os.path.join(d, "eq"))
+        print(f"  moe equivalence (8 ranks on one card): {json.dumps(eq)}",
+              flush=True)
+        pf = moe_prefill(os.path.join(d, "prefill"), card)
+    print("  host-staged collectives: none (gloo takes the ranks' CUDA "
+          "tensors itself)", flush=True)
+    return dict(equivalence=eq, prefill=pf,
+                seconds=time.perf_counter() - t0)
 
 
 def run_dryrun(expected: dict, card: str) -> dict:
@@ -3442,6 +3582,9 @@ def main() -> int:
                              f"{launches_dryrun} times and the model "
                              f"kernels {dryrun_counts}")
 
+    with phase("moe"):
+        moe_res = run_moe(card)
+
     with phase("report"):
         m = meas["gemm_replay_f32"]
         kern = dict(
@@ -3536,6 +3679,7 @@ def main() -> int:
         print(f"  zoo: {json.dumps(zoo_res)}", flush=True)
         print(f"  train: {json.dumps(train_res)}", flush=True)
         print(f"  dryrun: {json.dumps(dryrun_res)}", flush=True)
+        print(f"  moe: {json.dumps(moe_res)}", flush=True)
         print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
     # the last three lines: the card, the kernels, the verdict
     print(card_line(), flush=True)

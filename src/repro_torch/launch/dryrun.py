@@ -11,10 +11,16 @@ comes from its own source:
   and the decode cache under ``sharding.rules`` on ``launch/mesh.py``'s
   production meshes, divided as the reference's ``_shard_shape`` divides
   (an output's tuple adds 8 bytes per leaf, as XLA's does);
-  ``temp_size_in_bytes`` is the port's estimate: the peak live bytes of
-  the per-device step run on ``meta`` tensors, less the bytes of its
-  inputs (``LiveBytes``), which XLA's buffer assignment does not compute
-  alike;
+  ``temp_size_in_bytes`` is XLA's buffer assignment replayed on the
+  cell's compiled, scheduled text (``core.hlo.hlo_temp_bytes``) where the
+  text is recorded, else the per-device step's estimate: its peak live
+  bytes on ``meta`` tensors less the bytes of its inputs (``LiveBytes``),
+  which cannot show XLA's sequence parallelism, FSDP or sharded heads.
+  The step's estimate is also kept as ``temp_size_in_bytes_step``, and
+  ``temp_source`` says which of the two ("hlo" or "step") the temp is.
+  ``hbm_per_device_bytes`` is argument + temp + output - alias, less (on
+  a decode cell's text) the CPU backend's float32 shadows of the bf16
+  caches (``cpu_bf16_shadow_bytes``), as the reference computes it;
 * ``cost_analysis``: ``FlopCounterMode``'s FLOPs over the per-device step
   and the sum of every operation's input and output bytes;
 * ``collectives``, ``per_axis_lambda``, ``hlo_flops_per_device`` and
@@ -39,7 +45,8 @@ heads and a Mamba2 block's inner width whole (both derive from
 ``d_model``); the local vocabulary rounded up to 16.  A train cell takes
 the reference's microbatch rule; ``--cast-bf16`` gives the train step a
 bf16 compute copy, ``--bf16-params`` stores a serving cell's weights in
-bf16.  Sequence parallelism (``seq_res``) is not shown.
+bf16.  Sequence parallelism (``seq_res``) is not shown.  On the card's 1x1
+mesh, where no text is recorded, the step's temp is the one reported.
 
 Usage:
   python -m repro_torch.launch.dryrun --cell <arch> <shape> <mesh>  # a cell
@@ -444,6 +451,27 @@ def fixture_text(arch: str, shape_name: str, mesh_kind: str) -> Optional[str]:
     return gzip.decompress(path.read_bytes()).decode()
 
 
+def cpu_bf16_shadow_bytes(text: str, api, shape, mesh, rules) -> int:
+    """The reference's ``bf16_shadow_bytes``: on a decode cell's text, the
+    bytes of the float32 copies the CPU backend makes of bf16 cache leaves
+    (a ``convert`` to f32 at exactly a leaf's per-device shard shape),
+    which a TPU does not make."""
+    import re
+    from ..sharding.rules import spec_for
+    if shape.kind != "decode":
+        return 0
+    total = 0
+    for _, s in _paths(api.cache_specs(shape)):
+        if s.dtype != torch.bfloat16:
+            continue
+        shard = shard_shape(s.shape, spec_for(s.shape, s.logical, mesh,
+                                              rules), mesh)
+        pat = re.escape("f32[" + ",".join(map(str, shard)) + "]")
+        if re.search(r"= " + pat + r"\{[^}]*\} convert\(", text):
+            total += math.prod(shard) * 4
+    return total
+
+
 def hlo_analysis(text: str, axes) -> dict:
     """The HLO frontend's values of a compiled text (``core/hlo.py``,
     ``collective_sensitivity``; K1 on the selected backend)."""
@@ -485,9 +513,9 @@ def run_cell(arch: str, shape_name, mesh_kind: str, out_dir: str = None,
     text of the cell is read from the fixtures unless ``hlo_text`` is
     given; a variant (``overrides``, ``cast_bf16``, ``bf16_params``) reads
     none.  ``step=False`` skips the per-device step (a train cell's takes
-    seconds to minutes on the host): ``temp_size_in_bytes``,
-    ``cost_analysis`` and ``hbm_per_device_bytes`` are then null and the
-    roofline needs the compiled text."""
+    seconds to minutes on the host): ``cost_analysis`` and
+    ``temp_size_in_bytes_step`` are then null, and the cell needs the
+    compiled text, which gives the temp and the roofline."""
     from ..configs import ARCHS, SHAPES, HW, shape_applicable
     from ..launch.mesh import mesh_axis_sizes
     from ..models import get_model
@@ -514,6 +542,11 @@ def run_cell(arch: str, shape_name, mesh_kind: str, out_dir: str = None,
     n_dev = math.prod(mesh.shape.values())
     n_params = api.n_params()
 
+    variant = bool(overrides) or cast_bf16 or bf16_params
+    if hlo_text is None and not variant and isinstance(shape_name, str) \
+            and isinstance(mesh_kind, str):
+        hlo_text = fixture_text(arch, shape_name, mesh_kind)
+
     t0 = time.time()
     mem = memory_bytes(api, shape, mesh, rules, bf16_params,
                        unused_inputs(cfg, shape.kind))
@@ -521,25 +554,27 @@ def run_cell(arch: str, shape_name, mesh_kind: str, out_dir: str = None,
     if step:
         st = per_device_step(cfg, shape, mesh, rules, cast_bf16, bf16_params,
                              n_params)
-        mem["temp_size_in_bytes"] = st["temp_bytes"]
         cost = {"flops": float(st["flops"]),
                 "bytes accessed": float(st["bytes_accessed"])}
     else:
         st, cost = None, None
-        mem["temp_size_in_bytes"] = None
+    mem["temp_size_in_bytes_step"] = None if st is None else st["temp_bytes"]
     t_step = time.time() - t0
 
-    variant = bool(overrides) or cast_bf16 or bf16_params
-    if hlo_text is None and not variant and isinstance(shape_name, str) \
-            and isinstance(mesh_kind, str):
-        hlo_text = fixture_text(arch, shape_name, mesh_kind)
     t0 = time.time()
+    shadow = 0
     if hlo_text is not None:
+        from ..core.hlo import hlo_temp_bytes
+        mem["temp_size_in_bytes"] = hlo_temp_bytes(hlo_text)
+        mem["temp_source"] = "hlo"
+        shadow = cpu_bf16_shadow_bytes(hlo_text, api, shape, mesh, rules)
         hlo = hlo_analysis(hlo_text, axes)
         flops_dev = hlo["hlo_flops_per_device"]
         roof = roofline(flops_dev, hlo["hlo_bytes_per_device"],
                         hlo["collectives"]["total"]["bytes"], "hlo")
     elif cost is not None:
+        mem["temp_size_in_bytes"] = st["temp_bytes"]
+        mem["temp_source"] = "step"
         hlo = {"hlo_flops_per_device": None, "hlo_bytes_per_device": None,
                "collectives": None, "per_axis_lambda": None}
         flops_dev = cost["flops"]
@@ -550,9 +585,10 @@ def run_cell(arch: str, shape_name, mesh_kind: str, out_dir: str = None,
     t_hlo = time.time() - t0
 
     mf = model_flops(cfg, shape)
-    hbm = None if st is None else (
-        mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"] +
-        mem["output_size_in_bytes"] - mem["alias_size_in_bytes"])
+    # donated inputs alias their outputs: count them once
+    raw = (mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"] +
+           mem["output_size_in_bytes"] - mem["alias_size_in_bytes"])
+    hbm = raw - shadow
     return {
         "arch": arch, "shape": shape.name,
         "mesh": mesh_kind if isinstance(mesh_kind, str) else "custom",
@@ -560,11 +596,9 @@ def run_cell(arch: str, shape_name, mesh_kind: str, out_dir: str = None,
         "t_step_s": round(t_step, 2), "t_hlo_s": round(t_hlo, 2),
         "memory_analysis": mem,
         "hbm_per_device_bytes": hbm,
-        # keys of the reference's artifact: no CPU-backend compile, so
-        # no bf16 shadow copies to take off
-        "hbm_per_device_bytes_cpu_backend": hbm,
-        "cpu_bf16_shadow_bytes": 0,
-        "fits_hbm": None if hbm is None else hbm <= HW["hbm_bytes"],
+        "hbm_per_device_bytes_cpu_backend": raw,
+        "cpu_bf16_shadow_bytes": shadow,
+        "fits_hbm": hbm <= HW["hbm_bytes"],
         "cost_analysis": cost,
         **hlo,
         "roofline": roof,

@@ -6,10 +6,18 @@ The production meshes keep the reference's axes and sizes — single pod
 16x16 = 256 chips, axes (data, model); multi-pod 2x16x16 = 512 chips, axes
 (pod, data, model) — for ``sharding.rules`` and the dry-run that lowers
 against them.  The port runs on one card, so its host mesh is 1x1.
+
+``make_rank_mesh(model)`` is the counterpart of the reference's
+``make_host_mesh(model)``: a (data, model) mesh over the ranks of the
+initialised ``torch.distributed`` world, with the process groups of each
+axis behind it (``RankMesh``); the MoE layer's multi-rank paths run on it.
+A ``Mesh`` has no group behind it, and a layer under it runs on one rank.
 """
 from __future__ import annotations
 
-from typing import Dict
+import itertools
+import math
+from typing import Dict, Sequence, Tuple
 
 
 class Mesh:
@@ -35,3 +43,74 @@ def make_host_mesh() -> Mesh:
 
 def mesh_axis_sizes(mesh) -> list:
     return [(name, int(mesh.shape[name])) for name in mesh.axis_names]
+
+
+class RankMesh(Mesh):
+    """A ``Mesh`` whose devices are the ranks of the ``torch.distributed``
+    world, laid out in row-major order over the axes (rank ``d * model +
+    m`` sits at ``data`` ``d``, ``model`` ``m``, as ``jax.make_mesh``
+    lays out its devices).  ``group(axes)`` is the process group of the
+    ranks that share this rank's coordinates on every other axis; the
+    groups of every axis subset are made when the mesh is, by every rank
+    in the same order, as ``torch.distributed.new_group`` requires."""
+
+    def __init__(self, shape: Dict[str, int]):
+        import torch.distributed as dist
+        super().__init__(shape)
+        if not dist.is_initialized():
+            raise RuntimeError("a RankMesh needs an initialised "
+                               "torch.distributed process group")
+        size = math.prod(self.shape.values())
+        if dist.get_world_size() != size:
+            raise ValueError(f"mesh {self.shape} has {size} ranks, the "
+                             f"world {dist.get_world_size()}")
+        self.rank = dist.get_rank()
+        self.coords = self.coords_of(self.rank)
+        self._groups: Dict[Tuple[str, ...], tuple] = {}
+        names = self.axis_names
+        for n in range(1, len(names) + 1):
+            for axes in itertools.combinations(names, n):
+                for ranks in self._partition(axes):
+                    group = dist.new_group(list(ranks))
+                    if self.rank in ranks:
+                        self._groups[axes] = (group, ranks)
+
+    def coords_of(self, rank: int) -> Dict[str, int]:
+        out = {}
+        for name in reversed(self.axis_names):
+            rank, out[name] = divmod(rank, self.shape[name])
+        return {name: out[name] for name in self.axis_names}
+
+    def rank_of(self, coords: Dict[str, int]) -> int:
+        rank = 0
+        for name in self.axis_names:
+            rank = rank * self.shape[name] + coords[name]
+        return rank
+
+    def _partition(self, axes: Sequence[str]):
+        """The rank sets that vary over ``axes`` only, in a fixed order."""
+        rest = [a for a in self.axis_names if a not in axes]
+        for fixed in itertools.product(*(range(self.shape[a])
+                                         for a in rest)):
+            base = dict(zip(rest, fixed))
+            yield tuple(sorted(self.rank_of({**base, **dict(zip(axes, c))})
+                               for c in itertools.product(
+                                   *(range(self.shape[a]) for a in axes))))
+
+    def group(self, axes: Sequence[str]):
+        """(process group, its ranks in group-rank order) of the ranks that
+        share this rank's coordinates off ``axes``."""
+        key = tuple(a for a in self.axis_names if a in axes)
+        return self._groups[key]
+
+
+def make_rank_mesh(model: int = 1) -> RankMesh:
+    """``{"data": world // model, "model": model}`` over the initialised
+    ``torch.distributed`` world (``model`` clamped to [1, world], as the
+    reference's ``make_host_mesh`` clamps it to its devices)."""
+    import torch.distributed as dist
+    n = dist.get_world_size()
+    model = max(1, min(model, n))
+    if n % model:
+        raise ValueError(f"model={model} does not divide {n} ranks")
+    return RankMesh({"data": n // model, "model": model})

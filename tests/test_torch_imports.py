@@ -31,7 +31,10 @@ def test_the_port_has_files():
             "faults.py", "hlo.py", "fxgraph.py", "encdec.py", "tracing.py",
             "optimizer.py", "train_loop.py", "checkpoint.py", "fault.py",
             "compression.py", "pipeline.py", "rules.py", "mesh.py",
-            "train.py", "dryrun.py", "remat.py", "chip_smoke.py"} <= names
+            "train.py", "dryrun.py", "remat.py", "chip_smoke.py",
+            "reference.py", "collectives.py", "moe_parallel.py",
+            "quickstart.py", "latency_sensitivity.py", "serve_lm.py",
+            "train_lm.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
