@@ -221,7 +221,26 @@ Phases, each timed; any failure ends the run with a non-zero exit:
              ms per MoE layer, collectives and bytes per layer, K4
              launches and peak memory.  The ranks contend for one card:
              their times say nothing of four cards.
-15. report — the card line, the ``{"kernels": [...]}`` line, and last the
+15. shard  — the sharded train step (``train_loop.jit_train_step`` on a
+             ``RankMesh``, ``repro_torch.launch.sharded``), ranks as
+             processes that share the card over ``gloo``: (a) the CPU
+             tests' 8-rank case on (2, 4) with TF32 off, every case of
+             ``src/repro_torch/configs/shard_expected.json`` (the JAX
+             package's ``jit_train_step`` on 8 host devices) within
+             ``tools/shard_expected.py``'s tolerances; (b) qwen3-0.6b at full width and depth
+             (float32 masters from seed 0, bf16 compute) on a (2, 2) mesh
+             of 4 ranks, the launcher's ``run`` for 3 steps of 8 x
+             128 tokens under ``ShardedLoop``: losses finite, step 1's loss
+             and gradient norm within ``SHARD_LOSS_TOL`` and
+             ``SHARD_GNORM_TOL`` of one rank's step on the same batch,
+             every rank's peak memory below half of that step's; ms per
+             step, collectives and bytes per step and rank; (c) its last
+             checkpoint (the full tree rank 0 assembled) restored by one
+             process, each rank's blocks of it its shards, and served: one
+             128-token prefill (K4 once per layer), every block and K4 call
+             within ``SERVE_TOL`` of the plain path.  The ranks contend for
+             one card: their times say nothing of four cards.
+16. report — the card line, the ``{"kernels": [...]}`` line, and last the
              ``{"ok": true, "device": {...}}`` line.
 
 Usage: python3 chip_smoke.py   (from the root of a checkout, one card)
@@ -381,10 +400,19 @@ def check_kernel(lv, k: int, seed: int, label: str, wide: bool = False):
         for clamp in (False, True):
             base = base_matrix(lv, k, seed, dtype, slot, dirty=True)
             # the plain version once, with its ready times: F does not
-            # depend on whether they are kept, and the plain version on
-            # the large plans takes seconds a call
-            Fp, Rp = base.clone(), torch.zeros_like(base)
-            level_step_plain(lv, Fp, clamp=clamp, R_out=Rp)
+            # depend on whether they are kept.  It runs on the host: its
+            # operations are exact (comparisons, copies and one IEEE add
+            # per element), so its bits do not depend on the device, and
+            # on the large plans a call takes a third of its time on the
+            # card (on one thread: its operations are small)
+            Fp, Rp = base.cpu(), torch.zeros_like(base, device="cpu")
+            threads = torch.get_num_threads()
+            torch.set_num_threads(1)
+            try:
+                level_step_plain(lv, Fp, clamp=clamp, R_out=Rp)
+            finally:
+                torch.set_num_threads(threads)
+            Fp, Rp = Fp.to(base.device), Rp.to(base.device)
             for want_r in (False, True):
                 Fk = base.clone()
                 Rk = torch.zeros_like(base) if want_r else None
@@ -3341,6 +3369,240 @@ def run_dryrun(expected: dict, card: str) -> dict:
     out["seconds"] = time.perf_counter() - t0
     return out
 
+# -------------------------------------------------------------- shard phase
+
+#: phase "shard" (b): step 1 of qwen3-0.6b (bf16 compute) on 4 ranks
+#: against one rank's on the same batch, relative: the loss within a
+#: quarter of a bf16 unit in the last place (2^-9 of the value; the ranks
+#: keep the row-parallel partial sums in float32 where one rank rounds its
+#: products to bf16, and sum the token losses in another order), the
+#: gradient norm within ``SERVE_TOL`` (2^-6), the tolerance of a bf16
+#: block against the plain path (PERF.md §6)
+SHARD_LOSS_TOL = 2.0 ** -9
+SHARD_GNORM_TOL = SERVE_TOL
+#: every rank's peak against the single-rank step's
+SHARD_PEAK_SHARE = 0.5
+
+
+def shard_fixture(out_dir: str) -> dict:
+    """(a) The CPU tests' 8-rank case on the card (``launch.sharded --case
+    fixture``; TF32 off in every rank): every case of
+    ``configs/shard_expected.json`` within ``tools/shard_expected.py``'s
+    tolerances of the reference's shards."""
+    import shard_expected as SE
+    from repro_torch.launch import sharded as S
+    t0 = time.perf_counter()
+    rcs = S.launch("fixture", out_dir, device="cuda", timeout=300)
+    if rcs != [0] * 8:
+        raise SystemExit(f"shard fixture: ranks exited {rcs}")
+    ranks = [json.loads(Path(out_dir, f"fixture_rank{r}.json").read_text())
+             for r in range(8)]
+    expected = json.loads((SRC / "repro_torch" / "configs" /
+                           "shard_expected.json").read_text())["cases"]
+
+    def gathered(name):
+        r0 = ranks[0]["runs"][name]
+        return dict(loss=r0["loss"], grad_norm=r0["grad_norm"], lr=r0["lr"],
+                    shards={f"d{r['coords']['data']}m{r['coords']['model']}":
+                            r["runs"][name]["shards"] for r in ranks})
+    out = {}
+    for arch, size, mb in S.CASES:
+        name = S.case_name(arch, size, mb)
+        err = SE.compare(gathered(name), expected[name])
+        bad = SE.over_tolerance(arch, err)
+        out[name] = dict(err, path=ranks[0]["runs"][name]["path"],
+                         collectives_rank0=ranks[0]["runs"][name][
+                             "collectives"])
+        print(f"  shard fixture {name}: {json.dumps(out[name])}",
+              flush=True)
+        if bad or any(r["device"] != "cuda" for r in ranks):
+            raise SystemExit(f"shard fixture {name}: {bad}")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def shard_single_step(card: str) -> dict:
+    """One rank's first step of ``launch.train.run``'s model and batch
+    (qwen3-0.6b, seed 0, batch 0 of 8 x 128): loss, gradient norm and
+    ``max_memory_allocated``."""
+    import torch
+    from repro_torch.configs import ARCHS, TrainConfig
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.launch import sharded as S
+    from repro_torch.models import get_model
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.train.train_loop import make_train_step
+    cfg = ARCHS[S.FULL_ARCH]
+    api = get_model(cfg)
+    tc = TrainConfig(total_steps=S.FULL_STEPS,
+                     warmup_steps=max(S.FULL_STEPS // 10, 1))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = api.init(torch.Generator(device="cuda").manual_seed(tc.seed),
+                      torch.device("cuda"))
+    opt = adamw_init(params)
+    data = SyntheticLMData(vocab_size=cfg.padded_vocab(), seq_len=TRAIN_SEQ,
+                           global_batch=TRAIN_BATCH, seed=tc.seed)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in data.batch(0).items()}
+    t0 = time.perf_counter()
+    params, opt, m = make_train_step(api, tc)(params, opt, batch)
+    out = dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+               step_s=time.perf_counter() - t0,
+               peak_bytes=torch.cuda.max_memory_allocated(), card=card)
+    del params, opt, m, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_sharded(ckdir: Path, ranks: list) -> dict:
+    """(c) The ranks' last checkpoint, the full tree rank 0 assembled,
+    restored by this one process: every rank's parameter blocks of it
+    equal to that rank's final shards (``launch.sharded.summary``, exact),
+    then one 128-token prefill through ``ModelApi.prefill_fn`` (K4 once
+    per layer, nothing else launched) and one prefill with every block and
+    every K4 call held to the plain path within ``SERVE_TOL``, as phase
+    "train" (c) holds them."""
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import sharded as S
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import get_model, transformer
+    from repro_torch.serve import prefill_batch
+    from repro_torch.sharding.rules import named_sharding
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.train_loop import (flatten_specs,
+                                              shardings_for_train)
+    cfg = ARCHS[S.FULL_ARCH]
+    api = get_model(cfg)
+    t0 = time.perf_counter()
+    tree, meta = ckpt.restore({"params": api.abstract()}, str(ckdir),
+                              device="cuda")
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    params = tree["params"]
+    mesh = Mesh(ranks[0]["mesh"])
+    pspecs, _, _ = shardings_for_train(api, mesh)
+    flat_p = ckpt._flatten({"params": params})
+    flat_s = flatten_specs({"params": pspecs})
+    for r in ranks:
+        for key, want in r["params"].items():
+            got = S.summary(named_sharding(mesh, flat_s[key]).block(
+                flat_p[key], r["coords"]).cpu().numpy())
+            if got != want:
+                raise SystemExit(f"the served checkpoint's {key} block of "
+                                 f"rank {r['rank']} is not its shard")
+    if meta["step"] != S.FULL_STEPS:
+        raise SystemExit(f"restored step {meta['step']}")
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        first, _ = api.prefill_fn(params, prefill_batch(
+            cfg, prompt_tokens(cfg, TRAIN_SEQ, 6)), cache_len=TRAIN_SEQ)
+    torch.cuda.synchronize()
+    prefill_ms = 1e3 * (time.perf_counter() - t0)
+    counts = read_counts()
+    want = dict.fromkeys(counts, 0)
+    want["flash_attention"] = attention_calls(cfg)
+    if counts != want or not torch.isfinite(first).all():
+        raise SystemExit(f"serving the sharded run's weights: launches "
+                         f"{counts}, expected {want}")
+    prompt = prompt_tokens(cfg, TRAIN_SEQ, 7)
+    with torch.inference_mode():
+        with attention_compare() as att, block_compare(transformer,
+                                                      False) as cmp:
+            lk, _ = api.prefill_fn(params, prefill_batch(cfg, prompt),
+                                   cache_len=TRAIN_SEQ + 1)
+    if (not torch.isfinite(lk).all() or
+            att.calls != attention_calls(cfg) or att.worst > SERVE_TOL or
+            cmp.blocks != cfg.n_layers or cmp.worst_h > SERVE_TOL):
+        raise SystemExit(f"sharded run's weights, kernels vs plain: "
+                         f"{att.calls} attention calls within "
+                         f"{att.worst:.3e}, {cmp.blocks} blocks within "
+                         f"{cmp.worst_h:.3e} (> {SERVE_TOL:.3e}?)")
+    out = dict(restore_s=restore_s, step=meta["step"],
+               token=int(first.argmax(-1)[0]), prefill_ms=prefill_ms,
+               launches=counts,
+               attention_rel_err=att.worst, attention_calls=att.calls,
+               block_h_rel_err=cmp.worst_h, blocks=cmp.blocks)
+    del params, tree
+    torch.cuda.empty_cache()
+    print(f"  serve the sharded checkpoint: {json.dumps(out)}", flush=True)
+    return out
+
+
+def shard_full_width(work: Path, card: str) -> dict:
+    """(b) qwen3-0.6b at full width and depth on 4 ranks of a (2, 2) mesh
+    sharing the card (``launch.sharded --case full``: the launcher's
+    ``run`` under ``ShardedLoop``, batch 8 x 128, ``FULL_STEPS``
+    steps): losses finite, step 1's loss and gradient norm within
+    ``SHARD_LOSS_TOL`` and ``SHARD_GNORM_TOL`` of one rank's, every
+    rank's peak below ``SHARD_PEAK_SHARE`` of one rank's step; then (c)
+    ``serve_sharded``."""
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import sharded as S
+    from repro_torch.models import get_model
+    one = shard_single_step(card)
+    print(f"  one rank's step 1: {json.dumps(one)}", flush=True)
+    work.mkdir(parents=True, exist_ok=True)
+    free_gb = shutil.disk_usage(work).free / 1e9
+    ckpt_gb = 3 * 4 * get_model(ARCHS[S.FULL_ARCH]).n_params() / 1e9
+    if free_gb < 1.2 * ckpt_gb:
+        raise SystemExit(f"phase shard: {free_gb:.1f} GB free under {work}")
+    t0 = time.perf_counter()
+    rcs = S.launch("full", str(work), device="cuda", timeout=400)
+    ranks_s = time.perf_counter() - t0
+    if rcs != [0] * 4:
+        raise SystemExit(f"shard full: ranks exited {rcs}")
+    ranks = [json.loads((work / f"full_rank{r}.json").read_text())
+             for r in range(4)]
+    r0 = ranks[0]
+    loss_err = abs(r0["loss"][0] - one["loss"]) / abs(one["loss"])
+    gn_err = abs(r0["grad_norm"][0] - one["grad_norm"]) / one["grad_norm"]
+    peaks = [r["peak_bytes"] for r in ranks]
+    steps_ms = [1e3 * s for s in r0["seconds"]]
+    out = dict(
+        arch=S.FULL_ARCH, mesh=r0["mesh"], path=r0["path"],
+        params=r0["n_params"], steps=len(r0["loss"]), loss=r0["loss"],
+        grad_norm=r0["grad_norm"], lr=r0["lr"],
+        loss_rel_err_step1=loss_err, grad_norm_rel_err_step1=gn_err,
+        one_rank=one, step_ms_rank0=steps_ms,
+        step_ms_median_rank0=sorted(steps_ms)[len(steps_ms) // 2],
+        step_ms_per_rank=[[1e3 * s for s in r["seconds"]] for r in ranks],
+        collectives_per_step_rank0=r0["collectives_per_step"],
+        checkpoint_collectives_rank0=r0["checkpoint_collectives"],
+        peak_bytes=peaks, peak_share_of_one_rank=[p / one["peak_bytes"]
+                                                  for p in peaks],
+        ranks_s=ranks_s, loop_s_rank0=r0["seconds_total"], card=card)
+    print(f"  shard full width (4 ranks contending for one card; says "
+          f"nothing of four cards; {card}): {json.dumps(out)}", flush=True)
+    if (not all(math.isfinite(x) for r in ranks for x in r["loss"]) or
+            loss_err > SHARD_LOSS_TOL or gn_err > SHARD_GNORM_TOL or
+            max(peaks) >= SHARD_PEAK_SHARE * one["peak_bytes"] or
+            r0["path"] != "tp"):
+        raise SystemExit(f"shard full width: losses {r0['loss']}, step 1 "
+                         f"loss {loss_err:.3e} (> {SHARD_LOSS_TOL:.1e}?), "
+                         f"grad norm {gn_err:.3e} (> "
+                         f"{SHARD_GNORM_TOL:.1e}?), peaks {peaks} against "
+                         f"{one['peak_bytes']}, path {r0['path']}")
+    out["serve"] = serve_sharded(work / "ckpt", ranks)
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_shard(card: str) -> dict:
+    """Phase "shard": (a) ``shard_fixture``, (b) ``shard_full_width`` and
+    (c) its ``serve_sharded``."""
+    t0 = time.perf_counter()
+    work = scratch_dir("shard")
+    try:
+        fx = shard_fixture(str(work / "fixture"))
+        full = shard_full_width(work / "full", card)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return dict(fixture=fx, full=full, seconds=time.perf_counter() - t0)
+
 
 def main() -> int:
     global HBM_BYTES_PER_S, F32_OPS_PER_S, BF16_OPS_PER_S
@@ -3585,6 +3847,9 @@ def main() -> int:
     with phase("moe"):
         moe_res = run_moe(card)
 
+    with phase("shard"):
+        shard_res = run_shard(card)
+
     with phase("report"):
         m = meas["gemm_replay_f32"]
         kern = dict(
@@ -3661,6 +3926,8 @@ def main() -> int:
             launches_per_arch={m["arch"]: m["launches"]["flash_attention"]
                                for m in served},
             launches_train=train_res["serve"]["launches"]["flash_attention"],
+            launches_shard=shard_res["full"]["serve"]["launches"][
+                "flash_attention"],
             max_abs_err=att_checks["max_abs_err"],
             max_rel_err=att_checks["max_rel_err"],
             max_rel_err_round_p=att_checks["max_rel_err_round_p"],
@@ -3680,6 +3947,7 @@ def main() -> int:
         print(f"  train: {json.dumps(train_res)}", flush=True)
         print(f"  dryrun: {json.dumps(dryrun_res)}", flush=True)
         print(f"  moe: {json.dumps(moe_res)}", flush=True)
+        print(f"  shard: {json.dumps(shard_res)}", flush=True)
         print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
     # the last three lines: the card, the kernels, the verdict
     print(card_line(), flush=True)

@@ -38,13 +38,12 @@ import argparse
 import dataclasses
 import json
 import os
-import socket
-import subprocess
 import sys
 import time
-from pathlib import Path
 
 import numpy as np
+
+from .mesh import close_ranks, init_rank, spawn_ranks
 
 #: the case's world size and model-axis size
 WORLDS = {"equivalence": (8, 4), "prefill": (4, 4)}
@@ -61,52 +60,14 @@ WEIGHTS = ("router", "wg", "wu", "wd")
 PREFILL_TOL = 2.0 ** -6
 
 
-def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 def launch(case: str, out: str, device: str = "cuda",
            timeout: float = 600.0, reduced: bool = False) -> list:
     """Run ``case`` on its ranks, one process each; return their exit
     codes.  Every rank still running at ``timeout`` seconds is killed."""
-    world, _ = WORLDS[case]
-    port = free_port()
-    src = str(Path(__file__).resolve().parents[2])
-    env = dict(os.environ)
-    env["PYTHONPATH"] = src + os.pathsep + env.get("PYTHONPATH", "")
-    procs = [subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.moe_parallel",
-         "--case", case, "--out", out, "--device", device,
-         "--rank", str(r), "--port", str(port)] +
-        (["--reduced"] if reduced else []), env=env)
-        for r in range(world)]
-    deadline = time.monotonic() + timeout
-    rcs = []
-    try:
-        for p in procs:
-            rcs.append(p.wait(timeout=max(deadline - time.monotonic(), 1)))
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    return rcs
-
-
-def _init(case: str, rank: int, port: int, device: str):
-    import torch
-    import torch.distributed as dist
-    from .mesh import make_rank_mesh
-    world, model = WORLDS[case]
-    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
-                            rank=rank, world_size=world)
-    if device == "cuda":
-        torch.cuda.set_device(0)
-    else:       # the ranks share the host's cores
-        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
-    return make_rank_mesh(model)
+    return spawn_ranks("repro_torch.launch.moe_parallel",
+                       ["--case", case, "--out", out, "--device", device] +
+                       (["--reduced"] if reduced else []), WORLDS[case][0],
+                       timeout)
 
 
 # ------------------------------------------------------------- equivalence
@@ -319,15 +280,15 @@ def main(argv=None) -> int:
     if args.case == "prefill" and args.device != "cuda" and \
             not args.reduced:
         raise SystemExit("the full-width prefill case runs on the card")
-    import torch.distributed as dist
-    mesh = _init(args.case, args.rank, args.port, args.device)
+    world, model = WORLDS[args.case]
+    mesh = init_rank(args.rank, world, args.port, args.device, model)
     try:
         if args.case == "equivalence":
             _run_equivalence(mesh, args.out, args.device)
         else:
             _run_prefill(mesh, args.out, args.device, args.reduced)
     finally:
-        dist.destroy_process_group()
+        close_ranks()
     return 0
 
 

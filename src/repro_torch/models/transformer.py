@@ -15,8 +15,10 @@ plain path (``ops`` raises for a CUDA call that autograd would
 differentiate: the kernels have no backward).  Each block is
 rematerialised when a gradient is taken under ``cfg.remat == "block"``
 (``remat.py``), as the reference's ``jax.checkpoint`` of its scan body.
-The reference's sharding constraints and ``pin_weight_shards`` are
-dropped (one card).
+The reference's sharding constraints and ``pin_weight_shards`` are hints
+to XLA's partitioner and are dropped: on the ranks of a
+``launch.mesh.RankMesh`` the sharded train step runs these blocks'
+tensor-parallel form (``parallel.py``), with explicit collectives.
 
 ``prefill`` raises on a VLM prompt shorter than its prefix: the
 reference's ``forward`` then runs over the P prefix positions and none of

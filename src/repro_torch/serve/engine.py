@@ -158,7 +158,9 @@ class ServeEngine:
         finished: List[Request] = []
         ticks = 0
         while (self.queue or any(self.slots)) and ticks < max_ticks:
-            before = [r for r in self.slots if r]
+            # the queue too: a request admitted by this tick can finish in
+            # it (ROADMAP §C 22)
+            before = [r for r in self.slots if r] + list(self.queue)
             self.step()
             ticks += 1
             for r in before:

@@ -10,13 +10,25 @@ size (``launch.mesh.Mesh``): the rules need no device.  A spec is a
 ``PartitionSpec``, a tuple of one entry per leading dimension (a mesh axis,
 a tuple of axes, or None), trailing Nones trimmed, as the reference's.
 
-The port runs on one card, so nothing is sharded: ``constrain`` returns
-its input, and the reference's ``named_sharding`` (a device placement) has
-no counterpart.  The specs are what a multi-device layout would use (the
-reference compiles its dry-run with them).
+``named_sharding(mesh, spec)`` is the counterpart of the reference's
+``NamedSharding``: the block of an array that each mesh position holds,
+for each dimension the slice given by the axes ``spec`` names there, in
+row-major mesh order (``devices_indices_map``), and the cut of that block
+out of a full tensor.  The sharded train step
+(``train.train_loop.jit_train_step``) holds each rank's parameters and
+moments as these blocks, and ``sharding.collectives`` computes its
+blocks with it.
+
+``constrain`` returns its input, under a ``launch.mesh.RankMesh`` too:
+the reference's ``with_sharding_constraint`` is a hint to XLA's
+partitioner, which the port does not have.  On ranks the layout of the
+activations is set by the explicit collectives of the sharded step
+(``models/parallel.py``), not by hints.  The dry-run reads the specs of a
+production mesh as the reference compiles with them.
 """
 from __future__ import annotations
 
+import math
 import threading
 from contextlib import contextmanager
 from typing import Dict, Optional, Sequence, Tuple
@@ -130,9 +142,64 @@ def param_partition_specs(specs_tree, mesh, rules: Optional[Dict] = None):
                     specs_tree)
 
 
+def spec_axes(spec: Sequence, ndim: int) -> Tuple[Tuple[str, ...], ...]:
+    """A spec's entries as one tuple of mesh axes per dimension (``()``
+    for a replicated one), padded to ``ndim``."""
+    out = []
+    for e in tuple(spec) + (None,) * (ndim - len(spec)):
+        out.append(() if e is None else (e,) if isinstance(e, str)
+                   else tuple(e))
+    return tuple(out)
+
+
+class NamedSharding:
+    """The reference's ``NamedSharding(mesh, spec)`` as blocks.  Dimension
+    ``i`` of an array of ``shape`` is cut into ``k`` equal slices, ``k``
+    the product of the sizes of the axes the spec names there; the
+    position at ``coords`` holds slice ``c`` with ``c`` its coordinates
+    on those axes, the first axis major.  A dimension that does not
+    divide raises ``ValueError``."""
+
+    def __init__(self, mesh, spec: Sequence):
+        self.mesh = mesh
+        self.spec = PartitionSpec(*spec)
+
+    def index(self, shape: Sequence[int], coords=None) -> tuple:
+        """The slices of the block at ``coords`` (the mesh's own position,
+        a ``RankMesh``'s rank, by default)."""
+        coords = self.mesh.coords if coords is None else coords
+        out = []
+        for n, axes in zip(shape, spec_axes(self.spec, len(shape))):
+            k = math.prod(self.mesh.shape[a] for a in axes)
+            if n % k:
+                raise ValueError(f"dimension {n} of {tuple(shape)} does not "
+                                 f"split {k} ways under {self.spec}")
+            i = 0
+            for a in axes:
+                i = i * self.mesh.shape[a] + coords[a]
+            out.append(slice(i * n // k, (i + 1) * n // k))
+        return tuple(out)
+
+    def devices_indices_map(self, shape: Sequence[int]) -> Dict[int, tuple]:
+        """{position (row-major over the mesh's axes): its slices}."""
+        return {r: self.index(shape, self.mesh.coords_of(r))
+                for r in range(math.prod(self.mesh.shape.values()))}
+
+    def block(self, x, coords=None):
+        """The block of the full ``x`` at ``coords`` (a view)."""
+        return x[self.index(x.shape, coords)]
+
+    def __repr__(self) -> str:
+        return f"NamedSharding({dict(self.mesh.shape)}, {self.spec!r})"
+
+
+def named_sharding(mesh, spec: Sequence) -> NamedSharding:
+    return NamedSharding(mesh, spec)
+
+
 def constrain(x, *logical: Optional[str]):
     """The reference's ``with_sharding_constraint`` under the installed
-    rules.  One card holds every array whole, so it returns ``x``."""
+    rules: it returns ``x``, with or without a mesh (module docstring)."""
     return x
 
 

@@ -127,6 +127,52 @@ def save(tree, directory: str, step: int, extra: Optional[dict] = None,
     return final
 
 
+def save_blocks(blocks: dict, directory: str, step: int, *, shapes: dict,
+                indices: dict, write: dict, lead: bool, barrier,
+                extra: Optional[dict] = None, keep: int = 3) -> str:
+    """``save``'s checkpoint of a tree that ranks hold in blocks, written
+    by the ranks together into the same files ``save`` writes: ``blocks``
+    maps each key to this rank's block, ``shapes`` to the full leaf's
+    shape, ``indices`` to the block's slices in it and ``write`` to
+    whether this rank writes it (one rank per block).  The ``lead`` rank
+    makes the files, then every rank writes its blocks through a memory
+    map, then the lead writes ``meta.json`` and renames the directory;
+    ``barrier()`` (every rank's) separates the three.  The ranks must
+    share the directory's file system."""
+    final = os.path.join(directory, f"step_{step:08d}")
+    tmp = final + ".tmp"
+    host = {k: _to_numpy(v) for k, v in blocks.items()}
+    if lead:
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+        for key, (arr, _) in host.items():
+            np.lib.format.open_memmap(
+                os.path.join(tmp, _sanitize(key) + ".npy"), mode="w+",
+                dtype=arr.dtype, shape=tuple(shapes[key]))
+    barrier()
+    for key, (arr, _) in host.items():
+        if write[key]:
+            mm = np.load(os.path.join(tmp, _sanitize(key) + ".npy"),
+                         mmap_mode="r+")
+            mm[indices[key]] = arr
+            del mm
+    barrier()
+    if lead:
+        meta = {"step": step, "keys": list(blocks),
+                "dtypes": {k: r for k, (_, r) in host.items()
+                           if r is not None}}
+        if extra:
+            meta["extra"] = extra
+        with open(os.path.join(tmp, "meta.json"), "w") as f:
+            json.dump(meta, f)
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.rename(tmp, final)
+        _gc(directory, keep)
+    barrier()
+    return final
+
+
 _pending: list = []
 
 
@@ -157,8 +203,12 @@ def latest_step(directory: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def _load(path: str, key: str, real: Optional[str], device) -> torch.Tensor:
-    arr = np.load(os.path.join(path, _sanitize(key) + ".npy"))
+def _load(path: str, key: str, real: Optional[str], device,
+          index=None) -> torch.Tensor:
+    arr = np.load(os.path.join(path, _sanitize(key) + ".npy"),
+                  mmap_mode="r" if index else None)
+    if index:
+        arr = np.ascontiguousarray(arr[index])
     if real is None:
         return torch.from_numpy(arr).to(device)
     store, dtype = _EXOTIC[real]
@@ -166,12 +216,14 @@ def _load(path: str, key: str, real: Optional[str], device) -> torch.Tensor:
 
 
 def restore(template, directory: str, step: Optional[int] = None,
-            device=None):
+            device=None, blocks: Optional[dict] = None):
     """Restore into the structure of ``template`` (tensors, ``meta``
     tensors, arrays or scalars).  Each leaf is loaded onto ``device``, or
     onto its template leaf's device when that is a real one (the host
-    otherwise): the reference's ``shardings`` role on one card.  Returns
-    (tree, meta)."""
+    otherwise): the reference's ``shardings`` role on one card.
+    ``blocks`` maps a leaf's key to the slices of it to load (a rank's
+    block, read from a memory-mapped file: the reference's elastic
+    re-shard).  Returns (tree, meta)."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -186,7 +238,8 @@ def restore(template, directory: str, step: Optional[int] = None,
         if dev is None:
             dev = (leaf.device if isinstance(leaf, torch.Tensor) and
                    leaf.device.type != "meta" else "cpu")
-        out[key] = _load(path, key, dtypes.get(key), dev)
+        out[key] = _load(path, key, dtypes.get(key), dev,
+                         None if blocks is None else blocks.get(key))
     return _unflatten(template, out), meta
 
 

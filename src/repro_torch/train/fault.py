@@ -24,6 +24,7 @@ Four faults of the reference are not copied (ROADMAP §C):
 """
 from __future__ import annotations
 
+import math
 import os
 import signal
 import time
@@ -73,19 +74,38 @@ class FaultTolerantLoop:
         self.inject_failure = inject_failure
         self.straggler = StragglerStats()
         self.restarts = 0
-        step = ckpt.latest_step(directory)
+        step = self._latest()
         if step is not None:
-            state, meta = ckpt.restore(state, directory, device=device)
+            state, meta = self._restore(state)
             self.start_step = meta["step"]
         else:
             self.start_step = 0
             # initial checkpoint: a failure before the first periodic save
             # must still be recoverable
-            ckpt.save(state, directory, 0, keep=keep)
+            self._save(state, 0)
         self.state = state
         self._cur_step = self.start_step
         self._prev = {}
         self._install_signal_handlers()
+
+    # the checkpoint's reads and writes, which ``ShardedLoop`` replaces
+    def _latest(self):
+        return ckpt.latest_step(self.directory)
+
+    def _restore(self, state):
+        return ckpt.restore(state, self.directory, device=self.device)
+
+    def _save(self, state, step: int, background: bool = False,
+              extra=None):
+        if background:
+            ckpt.save_async(state, self.directory, step, keep=self.keep)
+        else:
+            ckpt.save(state, self.directory, step, extra=extra,
+                      keep=self.keep)
+
+    def _settle(self):
+        """Let pending background saves land."""
+        ckpt.wait_pending()
 
     def _install_signal_handlers(self):
         for sig in (signal.SIGTERM,):
@@ -105,8 +125,7 @@ class FaultTolerantLoop:
         self._prev = {}
 
     def _emergency(self, signum, frame):
-        ckpt.save(self.state, self.directory, self._cur_step,
-                  extra={"emergency": True}, keep=self.keep)
+        self._save(self.state, self._cur_step, extra={"emergency": True})
         prev = self._prev.get(signum)
         if callable(prev):
             prev(signum, frame)
@@ -134,12 +153,11 @@ class FaultTolerantLoop:
                 self.state = step_fn(self.state, s)
             except Exception:
                 self.restarts += 1
-                ckpt.wait_pending()          # async saves land before restore
-                last = ckpt.latest_step(self.directory)
+                self._settle()               # async saves land before restore
+                last = self._latest()
                 if last is None:
                     raise
-                self.state, meta = ckpt.restore(
-                    self.state, self.directory, device=self.device)
+                self.state, meta = self._restore(self.state)
                 s = meta["step"]
                 self._cur_step = s
                 continue
@@ -147,7 +165,87 @@ class FaultTolerantLoop:
             self._cur_step = s
             self.straggler.record(time.time() - t0)
             if self.save_every and s % self.save_every == 0:
-                ckpt.save_async(self.state, self.directory, s, keep=self.keep)
-        ckpt.wait_pending()
-        ckpt.save(self.state, self.directory, s, keep=self.keep)
+                self._save(self.state, s, background=True)
+        self._settle()
+        self._save(self.state, s)
         return self.state
+
+
+class ShardedLoop(FaultTolerantLoop):
+    """``FaultTolerantLoop`` over the ranks of a ``launch.mesh.RankMesh``
+    whose state is each rank's shards, laid out by ``specs`` (a tree
+    parallel to the state with a ``PartitionSpec`` at each leaf, as
+    ``train_loop.shardings_for_train`` gives them).
+
+    A checkpoint holds the full tree, the files a single-rank run writes:
+    every rank writes its blocks into them (``checkpoint.save_blocks``; a
+    block replicated over ranks by the first of them), so the ranks must
+    share the checkpoint directory's file system, as ranks on one host
+    do.  A restore reads each rank's blocks of it (``checkpoint.restore``
+    with ``blocks``), so a checkpoint from any mesh, or from one rank,
+    resumes on any other.  Saves are synchronous.  Every rank must fail at
+    the same step (an injected failure does): a failure on one rank alone
+    leaves the others waiting in a collective.  No SIGTERM handler is
+    installed: an emergency save needs every rank, which a signal handler
+    cannot wait for."""
+
+    def __init__(self, state, directory: str, *, specs, mesh, **kw):
+        self.specs, self.mesh = specs, mesh
+        super().__init__(state, directory, **kw)
+
+    def _barrier(self):
+        import torch.distributed as dist
+        dist.barrier(group=self.mesh.group(self.mesh.axis_names)[0])
+
+    def _layout(self, state) -> dict:
+        """{key: (full shape, this rank's slices, whether it writes)}."""
+        from . import train_loop
+        from ..sharding.rules import named_sharding, spec_axes
+        mesh = self.mesh
+
+        def one(x, spec):
+            axes = spec_axes(spec, x.ndim)
+            shape = tuple(n * math.prod(mesh.shape[a] for a in ax)
+                          for n, ax in zip(x.shape, axes))
+            named = {a for ax in axes for a in ax}
+            first = not any(mesh.coords[a] for a in mesh.axis_names
+                            if a not in named)
+            return _Index((shape, named_sharding(mesh, spec).index(shape),
+                           first))
+        return {k: b.slices for k, b in ckpt._flatten(
+            train_loop._map_specs(one, state, self.specs)).items()}
+
+    def _latest(self):
+        self._barrier()
+        return ckpt.latest_step(self.directory)
+
+    def _restore(self, state):
+        self._barrier()
+        out = ckpt.restore(state, self.directory, device=self.device,
+                           blocks={k: v[1] for k, v in
+                                   self._layout(state).items()})
+        self._barrier()
+        return out
+
+    def _save(self, state, step: int, background: bool = False,
+              extra=None):
+        lay = self._layout(state)
+        ckpt.save_blocks(ckpt._flatten(state), self.directory, step,
+                         shapes={k: v[0] for k, v in lay.items()},
+                         indices={k: v[1] for k, v in lay.items()},
+                         write={k: v[2] for k, v in lay.items()},
+                         lead=self.mesh.rank == 0, barrier=self._barrier,
+                         extra=extra, keep=self.keep)
+
+    def _settle(self):
+        self._barrier()
+
+    def _install_signal_handlers(self):
+        pass
+
+
+class _Index:
+    """A leaf's layout, kept whole through ``checkpoint._flatten``."""
+
+    def __init__(self, slices):
+        self.slices = slices

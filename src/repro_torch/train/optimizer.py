@@ -54,10 +54,13 @@ def global_norm(tree) -> torch.Tensor:
                           for leaf in tree_leaves_sorted(tree)))
 
 
-def adamw_update(params, grads, state: AdamState, tc: TrainConfig):
-    """Returns (new_params, new_state, metrics)."""
+def adamw_update(params, grads, state: AdamState, tc: TrainConfig,
+                 grad_norm=None):
+    """Returns (new_params, new_state, metrics).  ``grad_norm`` is the
+    gradients' global norm when they are one rank's shards of it (the
+    sharded step's), else it is ``global_norm(grads)``."""
     step = state.step + 1
-    gn = global_norm(grads)
+    gn = global_norm(grads) if grad_norm is None else grad_norm
     scale = (torch.clamp(tc.grad_clip / torch.clamp(gn, min=1e-9), max=1.0)
              if tc.grad_clip else 1.0)
     lr = cosine_lr(tc, step)

@@ -13,22 +13,35 @@ recurrences take their plain versions (``attention_ref``, the chunked
 recurrences of ``kernels/ref.py``) on every device, as the reference's
 train step does; the forward-only CUDA kernels launch nowhere in it.
 
-One card has no shardings to compile with, so the reference's
-``jit_train_step`` is not ported; ``shardings_for_train`` gives the
-PartitionSpec trees a multi-device layout would use.
+``jit_train_step`` is the reference's sharded step on a (data, model)
+mesh of ``torch.distributed`` ranks (``launch.mesh.RankMesh``): each rank
+holds its shards of the parameters and AdamW moments, as the
+``PartitionSpec`` trees of ``shardings_for_train`` place them
+(``sharding.rules.named_sharding``), and its rows of the global batch
+(``rank_rows``).  The loss and its gradient are ``models/parallel.py``'s
+(FSDP over ``data``, tensor parallelism over ``model`` for the
+transformer families, the generic path for the others); the gradients
+come back already reduced into each rank's shards; the global norm sums
+each element once (a leaf replicated over an axis counts on the axis's
+first rank only) and AdamW updates the shards.  ``shard_tree`` and
+``assemble_tree`` cut a full tree into a rank's shards and put the full
+tree back together from them.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 
 from ..configs.base import TrainConfig
 from ..kernels import ops
-from ..models import ModelApi
-from ..models.module import tree_map, value_and_grad
+from ..models import ModelApi, parallel
+from ..models.module import (tree_leaves, tree_leaves_sorted, tree_map,
+                             value_and_grad)
 from ..sharding import PartitionSpec, param_partition_specs
-from ..sharding.rules import DEFAULT_RULES
+from ..sharding import collectives as coll
+from ..sharding.rules import DEFAULT_RULES, named_sharding, spec_axes
 from .optimizer import AdamState, adamw_update
 
 
@@ -54,30 +67,34 @@ def make_train_step(api: ModelApi, tc: TrainConfig):
     loss_and_grad = value_and_grad(loss_fn)
 
     def train_step(params, opt_state: AdamState, batch):
-        mb = tc.microbatches
-        if mb > 1:
-            sizes = {x.shape[0] for x in batch.values()}
-            if any(n % mb for n in sizes):
-                raise ValueError(f"a batch of leading sizes {sorted(sizes)} "
-                                 f"does not split into {mb} microbatches")
-            grads = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
-            loss = 0.0
-            for i in range(mb):
-                part = {k: x.reshape(mb, x.shape[0] // mb, *x.shape[1:])[i]
-                        for k, x in batch.items()}
-                l, g = loss_and_grad(params, part)
-                grads = tree_map(torch.add, grads, g)
-                loss = loss + l
-            grads = tree_map(lambda g: g / mb, grads)
-            loss = loss / mb
-        else:
-            loss, grads = loss_and_grad(params, batch)
+        loss, grads = _accumulate(loss_and_grad, params, batch,
+                                  tc.microbatches)
         params, opt_state, metrics = adamw_update(params, grads, opt_state, tc)
         metrics["loss"] = loss
         return params, opt_state, metrics
 
     return train_step
+
+
+def _accumulate(loss_and_grad, params, batch, mb: int):
+    """(loss, float32 grads) of ``batch`` split into ``mb`` equal
+    microbatches in order: their sums divided by ``mb``."""
+    if mb <= 1:
+        return loss_and_grad(params, batch)
+    sizes = {x.shape[0] for x in batch.values()}
+    if any(n % mb for n in sizes):
+        raise ValueError(f"a batch of leading sizes {sorted(sizes)} "
+                         f"does not split into {mb} microbatches")
+    grads = tree_map(lambda p: torch.zeros(
+        p.shape, dtype=torch.float32, device=p.device), params)
+    loss = 0.0
+    for i in range(mb):
+        part = {k: x.reshape(mb, x.shape[0] // mb, *x.shape[1:])[i]
+                for k, x in batch.items()}
+        l, g = loss_and_grad(params, part)
+        grads = tree_map(torch.add, grads, g)
+        loss = loss + l
+    return loss / mb, tree_map(lambda g: g / mb, grads)
 
 
 def shardings_for_train(api: ModelApi, mesh, rules: Optional[dict] = None):
@@ -91,3 +108,141 @@ def shardings_for_train(api: ModelApi, mesh, rules: Optional[dict] = None):
     pspecs = param_partition_specs(api.specs(), mesh, merged)
     opt_specs = AdamState(mu=pspecs, nu=pspecs, step=PartitionSpec())
     return pspecs, opt_specs, merged
+
+
+def _is_spec(x) -> bool:
+    return isinstance(x, PartitionSpec)
+
+
+def _map_specs(fn, tree, specs):
+    """``fn(leaf, spec)`` over a tree of dicts and ``AdamState``s whose
+    ``specs`` tree has a ``PartitionSpec`` at each leaf."""
+    if _is_spec(specs):
+        return fn(tree, specs)
+    if isinstance(tree, dict):
+        return {k: _map_specs(fn, v, specs[k]) for k, v in tree.items()}
+    if isinstance(tree, AdamState):
+        return AdamState(*(_map_specs(fn, getattr(tree, f),
+                                      getattr(specs, f))
+                           for f in AdamState._fields))
+    raise TypeError(f"no spec for a {type(tree).__name__}")
+
+
+def flatten_specs(specs, path: tuple = ()) -> dict:
+    """{checkpoint key: spec} of a specs tree (dicts, ``AdamState``s,
+    ``PartitionSpec`` leaves), in ``checkpoint._flatten``'s order and
+    spelling."""
+    if _is_spec(specs):
+        return {"/".join(path) or "root": specs}
+    if isinstance(specs, AdamState):
+        items = [("." + f, getattr(specs, f)) for f in AdamState._fields]
+    else:
+        items = [(str(k), specs[k]) for k in sorted(specs)]
+    return {k: v for name, sub in items
+            for k, v in flatten_specs(sub, path + (name,)).items()}
+
+
+def shard_tree(tree, specs, mesh):
+    """This rank's blocks (copies) of a full tree of tensors, laid out by
+    the parallel ``specs`` tree (``shardings_for_train``'s)."""
+    return _map_specs(lambda x, s: named_sharding(mesh, s).block(x).clone(),
+                      tree, specs)
+
+
+def assemble_tree(tree, specs, mesh, dst: int = 0):
+    """The full tree from every rank's blocks, in host memory on rank
+    ``dst``; the other ranks get a tree of None.  A collective: every rank
+    calls it.  Counted in ``collectives.COUNTS`` as ``assemble``."""
+    import torch.distributed as dist
+    from ..sharding.rules import NamedSharding
+    world = mesh.group(mesh.axis_names)[0]
+    here = mesh.rank == dst
+
+    def one(x, spec):
+        x = x.detach().cpu().contiguous()
+        shape = tuple(n * math.prod(mesh.shape[a] for a in axes)
+                      for n, axes in zip(x.shape, spec_axes(spec, x.ndim)))
+        blocks = [torch.empty_like(x) for _ in range(mesh.size)] \
+            if here else None
+        coll._run("assemble", lambda o, i: dist.gather(
+            i, o, dst=dst, group=world), blocks, x)
+        if not here:
+            return None
+        out = x.new_empty(shape)
+        for r, b in enumerate(blocks):
+            out[NamedSharding(mesh, spec).index(shape, mesh.coords_of(r))] = b
+        return out
+    return _map_specs(one, tree, specs)
+
+
+def sharded_global_norm(grads, pspecs, mesh) -> torch.Tensor:
+    """``optimizer.global_norm`` of the full gradients from this rank's
+    shards: each leaf's float32 sum of squares, in the reference's leaf
+    order, on the ranks at coordinate 0 of every axis its spec does not
+    name (an element replicated over an axis counts once), summed over
+    every rank."""
+    coords = mesh.coords
+    total = None
+    for g, spec in zip(tree_leaves_sorted(grads),
+                       tree_leaves_sorted(pspecs)):
+        named = {a for axes in spec_axes(spec, g.ndim) for a in axes}
+        part = torch.sum(torch.square(g.to(torch.float32)))
+        if any(coords[a] for a in mesh.axis_names if a not in named):
+            part = torch.zeros_like(part)
+        total = part if total is None else total + part
+    if mesh.size > 1:
+        total = coll._all_reduce(total, mesh.group(mesh.axis_names)[0])
+    return torch.sqrt(total)
+
+
+def jit_train_step(api: ModelApi, tc: TrainConfig, mesh, rules=None,
+                   donate: bool = True):
+    """The sharded train step on this rank of ``mesh``, a
+    ``launch.mesh.RankMesh`` (a ``Mesh`` with no ranks behind it raises
+    ``TypeError``): returns ``(step, pspecs, opt_specs, merged)`` as the
+    reference's does.  ``step(params, opt_state, batch)`` takes this
+    rank's shards of the parameters and moments (``shard_tree`` of
+    ``pspecs`` and ``opt_specs``) and its rows of the global batch
+    (``batch[k][parallel.rank_rows(B, mesh, tc.microbatches)]``) and
+    returns the new shards and the metrics ``loss``, ``grad_norm`` and
+    ``lr``: the global values, equal on every rank.  ``step.path`` names
+    the model's path (``parallel.path_for``).  ``donate`` is accepted for
+    the reference's signature; the step builds new tensors, as
+    ``make_train_step`` does.
+
+    Microbatches split this rank's rows in order (``rank_rows`` puts
+    each microbatch's block there) and their float32 gradients are summed
+    and divided by the count, as ``make_train_step`` does.  With
+    ``cast_params_bf16`` each shard is cast before its gather, which then
+    moves 2 bytes per parameter."""
+    from ..launch.mesh import RankMesh
+    if not isinstance(mesh, RankMesh):
+        raise TypeError(f"jit_train_step needs a RankMesh (ranks of a "
+                        f"torch.distributed world), got "
+                        f"{type(mesh).__name__}")
+    pspecs, opt_specs, merged = shardings_for_train(api, mesh, rules)
+    path = parallel.path_for(api.cfg, mesh, pspecs)
+    cast = torch.bfloat16 if tc.cast_params_bf16 else None
+    seed = 1.0 / mesh.size
+
+    def loss_and_grad(params, batch):
+        with torch.enable_grad():
+            q = tree_map(lambda x: x.detach().requires_grad_(), params)
+            with ops.differentiable():
+                loss = parallel.loss_fn(api, q, batch, mesh, pspecs, cast)
+            grads = iter(torch.autograd.grad(
+                loss, tree_leaves(q), torch.full_like(loss, seed),
+                materialize_grads=True))
+        return loss.detach(), tree_map(lambda _: next(grads), params)
+
+    def step(params, opt_state: AdamState, batch):
+        loss, grads = _accumulate(loss_and_grad, params, batch,
+                                  tc.microbatches)
+        gn = sharded_global_norm(grads, pspecs, mesh)
+        params, opt_state, metrics = adamw_update(params, grads, opt_state,
+                                                  tc, grad_norm=gn)
+        metrics["loss"] = loss
+        return params, opt_state, metrics
+
+    step.path = path
+    return step, pspecs, opt_specs, merged

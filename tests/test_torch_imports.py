@@ -34,7 +34,7 @@ def test_the_port_has_files():
             "train.py", "dryrun.py", "remat.py", "chip_smoke.py",
             "reference.py", "collectives.py", "moe_parallel.py",
             "quickstart.py", "latency_sensitivity.py", "serve_lm.py",
-            "train_lm.py"} <= names
+            "train_lm.py", "parallel.py", "sharded.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

@@ -165,6 +165,22 @@ def test_engine_rejects_mixed_prompt_lengths():
         eng.run_until_done()
 
 
+def test_request_done_in_its_first_tick_is_returned():
+    """ROADMAP §C 22: a request admitted and finished by the same tick (a
+    prefill token and one decode token, ``max_tokens=2``) is returned by
+    the port's ``run_until_done``; the reference's drops it (it looks only
+    at the slots held before the tick)."""
+    rapi, rp, api, p = _pair("qwen3-0.6b", 1)
+    prompt = _prompts(1, 6, 3)[0]
+    ref_eng = RefEngine(rapi, rp, batch_slots=1, max_seq=32)
+    ref_eng.submit(RefRequest(prompt=prompt, max_tokens=2))
+    assert ref_eng.run_until_done() == []
+    eng = ServeEngine(api, p, batch_slots=1, max_seq=32)
+    eng.submit(Request(prompt=prompt, max_tokens=2))
+    (done,) = eng.run_until_done()
+    assert done.done and len(done.output) == 2
+
+
 def test_temperature_sampling_is_seeded():
     _, _, api, p = _pair("rwkv6-7b", 1)
     outs = []
