@@ -69,8 +69,12 @@ def wkv6_chunked_ref(r, k, v, w, u, state, chunk: int = 64):
         cs_prev = torch.nn.functional.pad(cs, (0, 0, 1, 0))[:, :, :-1]
         # inter-chunk: y_t += (r_t * exp(cs_{t-1})) @ S
         y = torch.einsum("bhck,bhkv->bhcv", rt * torch.exp(cs_prev), S)
-        # intra-chunk: M[t,s] = sum_k r_t[k] exp(cs_{t-1}-cs_s)[k] k_s[k], s<t
-        ratio = torch.exp(cs_prev[:, :, :, None, :] - cs[:, :, None, :, :])
+        # intra-chunk: M[t,s] = sum_k r_t[k] exp(cs_{t-1}-cs_s)[k] k_s[k], s<t;
+        # the pairs s >= t are masked inside the exp (their exponents are
+        # positive, and an overflow there would make the gradient NaN)
+        ratio = torch.exp(torch.where(
+            tri[None, None, :, :, None],
+            cs_prev[:, :, :, None, :] - cs[:, :, None, :, :], -torch.inf))
         M = torch.einsum("bhck,bhcsk,bhsk->bhcs", rt, ratio, kt)
         M = torch.where(tri[None, None], M, 0.0)
         # diagonal (bonus) term: (r_t * u) . k_t
@@ -152,9 +156,11 @@ def ssd_chunked_ref(x, dt, A, Bm, Cm, D, state, chunk: int = 64):
                                Cc[:, :, i], csum[:, :, i])
         # inter-chunk
         y = torch.einsum("bhcn,bhpn->bhcp", ct * torch.exp(cs)[..., None], S)
-        # intra-chunk: L[t,s] = exp(cs_t - cs_s) for s <= t
-        L = torch.exp(cs[:, :, :, None] - cs[:, :, None, :])
-        L = torch.where(tri[None, None], L, 0.0)
+        # intra-chunk: L[t,s] = exp(cs_t - cs_s) for s <= t, the pairs s > t
+        # masked inside the exp (as in ``wkv6_chunked_ref``)
+        L = torch.exp(torch.where(tri[None, None],
+                                  cs[:, :, :, None] - cs[:, :, None, :],
+                                  -torch.inf))
         M = torch.einsum("bhcn,bhsn->bhcs", ct, bt) * L
         y = y + torch.einsum("bhcs,bhs,bhsp->bhcp", M, dtt, xt)
         # state update

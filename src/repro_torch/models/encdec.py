@@ -28,11 +28,12 @@ scan bodies.  Its sharding constraints are dropped (one card).
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..kernels import ops as kops
-from .layers import (attention_decode, compute_dtype, cross_entropy,
-                     embed_lookup, rms_norm, rope, swiglu)
+from .layers import (WHOLE, attention_decode, compute_dtype, cross_entropy,
+                     embed_lookup, rms_norm, rope)
 from .module import ParamSpec
 from . import remat
 
@@ -90,15 +91,15 @@ def _layer(blocks: dict, i: int) -> dict:
     return {key: val[i] for key, val in blocks.items()}
 
 
-def _ffn(h, wb):
-    x = rms_norm(h, wb["ln2"])
-    return h + swiglu(x, wb["wg"].to(x.dtype), wb["wu"].to(x.dtype),
-                      wb["wd"].to(x.dtype))
+def _ffn(h, wb, tp=WHOLE):
+    x = tp.full(rms_norm(h, wb["ln2"]))
+    wg, wu, wd = (wb[k].to(x.dtype) for k in ("wg", "wu", "wd"))
+    return h + tp.row(F.silu(x @ wg) * (x @ wu), wd)
 
 
-def _self_attn(x, wb, cfg: ModelConfig, positions, causal: bool):
-    """Self-attention of a whole sequence from position 0; returns (out,
-    (k, v))."""
+def _self_attn(x, wb, cfg: ModelConfig, positions, causal: bool, tp=WHOLE):
+    """Self-attention of a whole sequence from position 0 over the heads
+    of ``wb``; returns (out, (k, v))."""
     q = torch.einsum("btd,dhk->bthk", x, wb["wq"].to(x.dtype))
     k = torch.einsum("btd,dgk->btgk", x, wb["wk"].to(x.dtype))
     v = torch.einsum("btd,dgk->btgk", x, wb["wv"].to(x.dtype))
@@ -106,15 +107,15 @@ def _self_attn(x, wb, cfg: ModelConfig, positions, causal: bool):
     k = rope(k, positions, cfg.rope_theta)
     o = kops.flash_attention(q, k, v, causal=causal,
                              block_kv=cfg.attn_chunk_kv)
-    return torch.einsum("bthk,hkd->btd", o, wb["wo"].to(o.dtype)), (k, v)
+    return tp.row(o, wb["wo"], "bthk,hkd->btd"), (k, v)
 
 
-def encoder_block(h, wb, cfg: ModelConfig, positions):
+def encoder_block(h, wb, cfg: ModelConfig, positions, tp=WHOLE):
     """One bidirectional encoder block over the frames; returns (h, (k,
-    v))."""
-    o, kv = _self_attn(rms_norm(h, wb["ln"]), wb, cfg, positions,
-                       causal=False)
-    return _ffn(h + o, wb), kv
+    v)).  ``tp``: the tensor-parallel hooks (``layers.Whole``)."""
+    o, kv = _self_attn(tp.full(rms_norm(h, wb["ln"])), wb, cfg, positions,
+                       False, tp)
+    return _ffn(h + o, wb, tp), kv
 
 
 def encode(params, frame_embeds, cfg: ModelConfig):
@@ -137,20 +138,20 @@ def _cross_kv(enc_out, wb):
     return k, v
 
 
-def decoder_block(h, wb, enc_out, cfg: ModelConfig, positions):
+def decoder_block(h, wb, enc_out, cfg: ModelConfig, positions, tp=WHOLE):
     """One decoder block over the whole target sequence: causal
     self-attention, cross-attention over ``enc_out`` (no RoPE on the
-    encoder's memory) and the FFN.  Returns (h, (k, v), (xk, xv))."""
-    o, kv = _self_attn(rms_norm(h, wb["ln"]), wb, cfg, positions,
-                       causal=True)
+    encoder's memory) and the FFN.  Returns (h, (k, v), (xk, xv)).
+    ``tp``: the tensor-parallel hooks (``layers.Whole``)."""
+    o, kv = _self_attn(tp.full(rms_norm(h, wb["ln"])), wb, cfg, positions,
+                       True, tp)
     h = h + o
-    x = rms_norm(h, wb["x_ln"])
+    x = tp.full(rms_norm(h, wb["x_ln"]))
     q = torch.einsum("btd,dhk->bthk", x, wb["x_wq"].to(x.dtype))
     xk, xv = _cross_kv(enc_out, wb)
     o = kops.flash_attention(q, xk, xv, causal=False,
                              block_kv=cfg.attn_chunk_kv)
-    h = _ffn(h + torch.einsum("bthk,hkd->btd", o, wb["x_wo"].to(o.dtype)),
-             wb)
+    h = _ffn(h + tp.row(o, wb["x_wo"], "bthk,hkd->btd"), wb, tp)
     return h, kv, (xk, xv)
 
 

@@ -52,6 +52,38 @@ def swiglu(x, w_gate, w_up, w_down):
     return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
 
 
+class Whole:
+    """The tensor-parallel hooks a block calls (``parallel._Plan`` on a
+    rank of the sharded train step), for a process that holds all of the
+    block: each does nothing beyond the plain op."""
+
+    def full(self, x):
+        """A norm's output, for the column-parallel products."""
+        return x
+
+    def seq(self, x):
+        """This process's sequence block of ``x``."""
+        return x
+
+    def cols(self, x):
+        """This process's columns (the last dimension) of a leaf as wide
+        as the model, for its heads."""
+        return x
+
+    def row(self, x, w, eq=None):
+        """The row-parallel product of ``x`` and ``w`` (``eq`` for
+        ``torch.einsum``, else a matmul), in ``x``'s dtype."""
+        w = w.to(x.dtype)
+        return x @ w if eq is None else torch.einsum(eq, x, w)
+
+    def norm(self, x, w):
+        """``rms_norm`` over the last dimension, whole or split."""
+        return rms_norm(x, w)
+
+
+WHOLE = Whole()
+
+
 def _gqa_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """q: (B,T,H,hd), k: (B,C,KV,hd) -> (B,H,T,C) float32, GQA grouping."""
     B, T, H, hd = q.shape

@@ -14,7 +14,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..kernels import ops as kops
-from .layers import compute_dtype, rms_norm
+from .layers import WHOLE, compute_dtype, rms_norm
 from .module import ParamSpec
 
 _CONV_K = 4
@@ -66,11 +66,15 @@ def _causal_conv(x, kernel, tail=None):
     return out, xp[:, -(K - 1):]
 
 
-def block_apply(h, wb, cfg: ModelConfig, state):
-    """h: (B,T,d); state: {'conv': (B,K-1,d_in), 'S': (B,H,P,N)}."""
-    B, T, d = h.shape
-    d_in, H, P, N, G = dims(cfg)
-    x0 = rms_norm(h, wb["ln"])
+def block_apply(h, wb, cfg: ModelConfig, state, tp=WHOLE):
+    """h: (B,T,d); state: {'conv': (B,K-1,d_in) or None for zeros, 'S':
+    (B,H,P,N)}.  ``tp``: the tensor-parallel hooks (``layers.Whole``); the
+    ``d_in`` columns and heads are those of ``wb`` (a rank's), the gated
+    norm ``tp.norm`` over all of ``d_in``."""
+    x0 = tp.full(rms_norm(h, wb["ln"]))
+    B, T, d = x0.shape
+    _, _, P, N, G = dims(cfg)
+    H = wb["A_log"].shape[0]
     z = x0 @ wb["Wz"].to(x0.dtype)
     xin = x0 @ wb["Wx"].to(x0.dtype)
     xc, conv_tail = _causal_conv(xin, wb["conv"], state["conv"])
@@ -83,9 +87,9 @@ def block_apply(h, wb, cfg: ModelConfig, state):
     y, S = kops.ssd(xh.float(), dt.transpose(1, 2), A, Bm.float(),
                     Cm.float(), wb["D"].float(), state["S"],
                     chunk=cfg.ssm_chunk)
-    y = y.transpose(1, 2).reshape(B, T, d_in).to(h.dtype)
-    y = rms_norm(y * F.silu(z), wb["norm"])
-    out = y @ wb["Wo"].to(y.dtype)
+    y = y.transpose(1, 2).reshape(B, T, H * P).to(h.dtype)
+    y = tp.norm(y * F.silu(z), wb["norm"])
+    out = tp.row(y, wb["Wo"])
     return h + out, {"conv": conv_tail, "S": S}
 
 

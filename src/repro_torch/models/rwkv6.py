@@ -20,7 +20,8 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..kernels import ops as kops
-from .layers import compute_dtype, cross_entropy, embed_lookup, rms_norm
+from .layers import (WHOLE, compute_dtype, cross_entropy, embed_lookup,
+                     rms_norm)
 from .module import ParamSpec
 from . import remat
 
@@ -76,16 +77,19 @@ def _shift(x, prev):
     return torch.cat([prev[:, None, :].to(x.dtype), x[:, :-1]], dim=1)
 
 
-def time_mix(h, wb, cfg: ModelConfig, prev, S):
-    """h: (B,T,d); prev: (B,d); S: (B,H,hd,hd) -> (out, new_prev, new_S)."""
-    B, T, d = h.shape
-    H, hd = cfg.n_heads, cfg.hd
-    x = rms_norm(h, wb["ln1"])
+def time_mix(h, wb, cfg: ModelConfig, prev, S, tp=WHOLE):
+    """h: (B,T,d); prev: (B,d); S: (B,H,hd,hd) -> (out, new_prev, new_S).
+    ``tp``: the tensor-parallel hooks (``layers.Whole``); the heads are
+    those of ``wb`` (a rank's: its columns of ``w0`` and ``Bw``)."""
+    x = tp.full(rms_norm(h, wb["ln1"]))
+    B, T, d = x.shape
+    H, hd = wb["Wr"].shape[1], cfg.hd
     xp = _shift(x, prev)
     xr, xk, xv, xg, xw = (_lerp(x, xp, wb[m])
                           for m in ("mu_r", "mu_k", "mu_v", "mu_g", "mu_w"))
-    wlog = wb["w0"].float() + torch.tanh(xw.float() @ wb["Aw"]) @ wb["Bw"]
-    w = torch.exp(-torch.exp(wlog))                       # (B,T,d) in (0,1)
+    wlog = tp.cols(wb["w0"]).float() + \
+        torch.tanh(xw.float() @ wb["Aw"]) @ tp.cols(wb["Bw"])
+    w = torch.exp(-torch.exp(wlog))                       # (B,T,H*hd), (0,1)
     dt = x.dtype
     r = torch.einsum("btd,dhk->bhtk", xr, wb["Wr"].to(dt))
     k = torch.einsum("btd,dhk->bhtk", xk, wb["Wk"].to(dt))
@@ -98,25 +102,25 @@ def time_mix(h, wb, cfg: ModelConfig, prev, S):
     y = rms_norm(y, torch.ones((hd,), dtype=torch.float32, device=y.device)) \
         * wb["ln_x"].to(y.dtype)
     y = y * g.to(y.dtype)
-    out = torch.einsum("bthk,hkd->btd", y.to(h.dtype), wb["Wo"].to(h.dtype))
+    out = tp.row(y.to(h.dtype), wb["Wo"], "bthk,hkd->btd")
     return out, x[:, -1, :], S
 
 
-def channel_mix(h, wb, cfg: ModelConfig, prev):
-    x = rms_norm(h, wb["ln2"])
+def channel_mix(h, wb, cfg: ModelConfig, prev, tp=WHOLE):
+    x = tp.full(rms_norm(h, wb["ln2"]))
     xp = _shift(x, prev)
     xk = _lerp(x, xp, wb["mu_ck"])
     xr = _lerp(x, xp, wb["mu_cr"])
     kk = torch.square(torch.relu(xk @ wb["Wck"].to(x.dtype)))
-    out = torch.sigmoid(xr @ wb["Wcr"].to(x.dtype)) * \
-        (kk @ wb["Wcv"].to(x.dtype))
+    out = torch.sigmoid(tp.seq(xr) @ wb["Wcr"].to(x.dtype)) * \
+        tp.row(kk, wb["Wcv"])
     return out, x[:, -1, :]
 
 
-def block_apply(h, wb, cfg: ModelConfig, state):
-    att, p1, S = time_mix(h, wb, cfg, state["prev_att"], state["S"])
+def block_apply(h, wb, cfg: ModelConfig, state, tp=WHOLE):
+    att, p1, S = time_mix(h, wb, cfg, state["prev_att"], state["S"], tp)
     h = h + att
-    ffn, p2 = channel_mix(h, wb, cfg, state["prev_ffn"])
+    ffn, p2 = channel_mix(h, wb, cfg, state["prev_ffn"], tp)
     h = h + ffn
     return h, {"prev_att": p1, "prev_ffn": p2, "S": S}
 

@@ -43,13 +43,13 @@ from __future__ import annotations
 import json
 import os
 import tempfile
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..configs import get_config
-from ..configs.base import ShapeConfig
+from ..configs.base import ModelConfig, ShapeConfig
 from ..core.fxgraph import capture, edag_from_fn, edag_from_graph
 from ..core.graph import EDag
 from ..core.placement import PlacementObject
@@ -147,12 +147,14 @@ def _index_update(path, key: str, digest: str) -> None:
             pass
 
 
-def _api(name: str, reduced: bool):
+def _api(name: Union[str, ModelConfig], reduced: bool):
+    if isinstance(name, ModelConfig):
+        return get_model(name)
     cfg = get_config(name)
     return get_model(cfg.reduced() if reduced else cfg)
 
 
-def trace_model(name: str, phase: str = "prefill", *,
+def trace_model(name: Union[str, ModelConfig], phase: str = "prefill", *,
                 seq_len: int = 32, batch_size: int = 2,
                 reduced: bool = True,
                 mem_threshold_bytes: float = DEFAULT_MEM_THRESHOLD,
@@ -161,14 +163,16 @@ def trace_model(name: str, phase: str = "prefill", *,
     """Trace one model-zoo config and phase to a finalized eDAG.
 
     ``reduced=True`` (default) uses the config's smoke-size reduction: the
-    same family and topology, small tensors.  With a trace store
-    configured, a repeat request is served from the digest-addressed store
-    through the request-key index (stored traces carry no labels; pass
-    ``use_store=False`` where labels are needed, as ``model_objects``
-    needs them)."""
+    same family and topology, small tensors.  A ``ModelConfig`` in place
+    of the name is traced as it is (``reduced`` does not apply).  With a
+    trace store configured, a repeat request is served from the
+    digest-addressed store through the request-key index (stored traces
+    carry no labels; pass ``use_store=False`` where labels are needed, as
+    ``model_objects`` needs them)."""
     store = trace_store_dir() if use_store else None
-    key = _trace_key(name, phase, seq_len, batch_size, reduced,
-                     mem_threshold_bytes, scan_unroll_limit)
+    key = _trace_key(name if isinstance(name, str) else repr(name), phase,
+                     seq_len, batch_size, reduced, mem_threshold_bytes,
+                     scan_unroll_limit)
     if store is not None:
         digest = _index_load(store / _INDEX_NAME).get(key)
         if digest:

@@ -20,7 +20,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..kernels import ops as kops
-from .layers import (attention_decode, compute_dtype, cross_entropy,
+from .layers import (WHOLE, attention_decode, compute_dtype, cross_entropy,
                      embed_lookup, rms_norm, rope)
 from .module import ParamSpec
 from . import mamba2, remat
@@ -67,12 +67,15 @@ def zamba_specs(cfg: ModelConfig) -> dict:
     return out
 
 
-def shared_attn(h, x0, w, cfg: ModelConfig, positions, cache=None, cur=None):
+def shared_attn(h, x0, w, cfg: ModelConfig, positions, cache=None, cur=None,
+                tp=WHOLE):
     """Shared attention on concat(h, x0).  Returns (h + out, kv): for a
     prompt kv = (k, v) of the whole sequence; for a decode step kv = the
-    caches (ck, cv) with this step's key and value written at ``cur``."""
+    caches (ck, cv) with this step's key and value written at ``cur``.
+    ``tp``: the tensor-parallel hooks (``layers.Whole``), over the heads of
+    ``w``."""
     x = torch.cat([h, x0], dim=-1)
-    x = rms_norm(x, w["ln"])
+    x = tp.full(rms_norm(x, w["ln"]))
     q = torch.einsum("btd,dhk->bthk", x, w["wq"].to(x.dtype))
     k = torch.einsum("btd,dgk->btgk", x, w["wk"].to(x.dtype))
     v = torch.einsum("btd,dgk->btgk", x, w["wv"].to(x.dtype))
@@ -89,7 +92,7 @@ def shared_attn(h, x0, w, cfg: ModelConfig, positions, cache=None, cur=None):
         cv[:, cur:cur + T] = v.to(cv.dtype)
         o = attention_decode(q, ck, cv, cur)
         kv = (ck, cv)
-    out = torch.einsum("bthk,hkd->btd", o, w["wo"].to(o.dtype))
+    out = tp.row(o, w["wo"], "bthk,hkd->btd")
     return h + out, kv
 
 

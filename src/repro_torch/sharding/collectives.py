@@ -40,9 +40,11 @@ the rank's block of the output's gradient over the size of the axes the
 output's spec does not name.
 
 Every call is counted in ``COUNTS`` (calls and payload bytes by label:
-the ``torch.distributed`` call's name, or ``shard`` and ``assemble`` for
-the edges).  The names used exist in torch 2.11 and 2.13 (2.13 calls
-``reduce_scatter_tensor`` and ``all_gather_into_tensor`` deprecated).
+the ``torch.distributed`` call's name, ``gather_params:<axes>`` for the
+all-gathers of the FSDP gathers, by the axes gathered, or ``shard`` and
+``assemble`` for the edges).  The names used exist in torch 2.11 and
+2.13 (2.13 calls ``reduce_scatter_tensor`` and ``all_gather_into_tensor``
+deprecated).
 ``gloo`` takes CUDA tensors for all four collectives in torch 2.11
 (``chip_smoke.py`` phase "moe"), so nothing is staged through host memory
 here (gloo's own CUDA path copies through it).
@@ -265,7 +267,7 @@ class _GatherParams(torch.autograd.Function):
             group = mesh.group(axes)[0]
             rows = [xs[i].movedim(plans[i][0][0][0], 0) for i in idx]
             flat = torch.cat([r.reshape(1, -1) for r in rows], dim=1)
-            got = _all_gather(flat, group, 0)
+            got = _all_gather(flat, group, 0, _gather_label(axes))
             off = 0
             for i, r in zip(idx, rows):
                 piece = got[:, off:off + r.numel()]
@@ -303,6 +305,11 @@ class _GatherParams(torch.autograd.Function):
                 gs[i] = flat[off:off + gs[i].numel()].reshape(gs[i].shape)
                 off += gs[i].numel()
         return (None,) + tuple(g.to(m) for g, m in zip(gs, ctx.masters))
+
+
+def _gather_label(axes) -> str:
+    """``COUNTS``' label of an FSDP gather over ``axes``."""
+    return "gather_params:" + "+".join(axes)
 
 
 def _buckets(plans, xs) -> dict:
@@ -354,7 +361,7 @@ class _GatherParam(torch.autograd.Function):
             p.dtype
         x = p.to(dtype) if dtype is not None else p
         for dim, axes in plan:
-            x = _all_gather(x, mesh.group(axes)[0], dim)
+            x = _all_gather(x, mesh.group(axes)[0], dim, _gather_label(axes))
         return x
 
     @staticmethod

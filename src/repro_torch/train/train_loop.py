@@ -175,24 +175,47 @@ def assemble_tree(tree, specs, mesh, dst: int = 0):
     return _map_specs(one, tree, specs)
 
 
+def _sumsq(g, spec, mesh) -> torch.Tensor:
+    """A shard's float32 sum of squares, zero on a rank off coordinate 0
+    of an axis ``spec`` does not name (an element replicated over an axis
+    counts once)."""
+    named = {a for axes in spec_axes(spec, g.ndim) for a in axes}
+    part = torch.sum(torch.square(g.to(torch.float32)))
+    if any(mesh.coords[a] for a in mesh.axis_names if a not in named):
+        part = torch.zeros_like(part)
+    return part
+
+
 def sharded_global_norm(grads, pspecs, mesh) -> torch.Tensor:
     """``optimizer.global_norm`` of the full gradients from this rank's
-    shards: each leaf's float32 sum of squares, in the reference's leaf
-    order, on the ranks at coordinate 0 of every axis its spec does not
-    name (an element replicated over an axis counts once), summed over
-    every rank."""
-    coords = mesh.coords
+    shards: each leaf's ``_sumsq``, in the reference's leaf order, summed
+    over every rank."""
     total = None
     for g, spec in zip(tree_leaves_sorted(grads),
                        tree_leaves_sorted(pspecs)):
-        named = {a for axes in spec_axes(spec, g.ndim) for a in axes}
-        part = torch.sum(torch.square(g.to(torch.float32)))
-        if any(coords[a] for a in mesh.axis_names if a not in named):
-            part = torch.zeros_like(part)
+        part = _sumsq(g, spec, mesh)
         total = part if total is None else total + part
     if mesh.size > 1:
         total = coll._all_reduce(total, mesh.group(mesh.axis_names)[0])
     return torch.sqrt(total)
+
+
+def leaf_norms(grads, pspecs=None, mesh=None) -> dict:
+    """{checkpoint key: the float32 norm of the full leaf} of a gradient
+    tree; with ``pspecs`` and ``mesh``, of the full gradients from this
+    rank's shards (each leaf's ``_sumsq``, one all-reduce)."""
+    from .checkpoint import _flatten
+    flat = _flatten(grads)
+    if mesh is None:
+        sq = [torch.sum(torch.square(g.to(torch.float32)))
+              for g in flat.values()]
+    else:
+        specs = flatten_specs(pspecs)
+        sq = [_sumsq(g, specs[k], mesh) for k, g in flat.items()]
+    sq = torch.stack(sq)
+    if mesh is not None and mesh.size > 1:
+        sq = coll._all_reduce(sq, mesh.group(mesh.axis_names)[0])
+    return dict(zip(flat, torch.sqrt(sq).tolist()))
 
 
 def jit_train_step(api: ModelApi, tc: TrainConfig, mesh, rules=None,
@@ -206,7 +229,8 @@ def jit_train_step(api: ModelApi, tc: TrainConfig, mesh, rules=None,
     (``batch[k][parallel.rank_rows(B, mesh, tc.microbatches)]``) and
     returns the new shards and the metrics ``loss``, ``grad_norm`` and
     ``lr``: the global values, equal on every rank.  ``step.path`` names
-    the model's path (``parallel.path_for``).  ``donate`` is accepted for
+    the model's path (``parallel.path_for``); ``step.grads(params,
+    batch)`` is the step's (loss, gradient shards) without the update.  ``donate`` is accepted for
     the reference's signature; the step builds new tensors, as
     ``make_train_step`` does.
 
@@ -245,4 +269,6 @@ def jit_train_step(api: ModelApi, tc: TrainConfig, mesh, rules=None,
         return params, opt_state, metrics
 
     step.path = path
+    step.grads = lambda params, batch: _accumulate(
+        loss_and_grad, params, batch, tc.microbatches)
     return step, pspecs, opt_specs, merged

@@ -25,6 +25,7 @@ not ground truth for the port, ROADMAP §C 2).
   the component traces and ``model_summary`` (the counterpart of
   ``model_hlo_summary``).
 """
+import dataclasses
 import functools
 import json
 from pathlib import Path
@@ -38,7 +39,7 @@ from hypothesis import given, settings, strategies as st
 
 import repro.core as R
 from repro.models import tracing as RT
-from repro_torch.configs import ARCHS
+from repro_torch.configs import ARCHS, get_config
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.core import grid_report, report, suite_grid_report
 from repro_torch.core.placement import search_placement
@@ -452,8 +453,7 @@ def test_model_summary_terms(phase):
 
 def test_reduced_false_uses_the_full_config(monkeypatch):
     """``reduced=False`` traces the full config (not run here at full
-    width: the chip smoke test traces qwen3-0.6b's decode at full width):
-    the api it builds has the full widths."""
+    depth): the api it builds has the full widths."""
     seen = []
     monkeypatch.setattr(tracing, "_capture", lambda phase, fn, args:
                         seen.append(args[0]["embed"].shape) or
@@ -462,6 +462,27 @@ def test_reduced_false_uses_the_full_config(monkeypatch):
                         use_store=False)
     cfg = ARCHS["qwen3-0.6b"]
     assert seen == [torch.Size([cfg.padded_vocab(), cfg.d_model])]
+
+
+def test_full_width_trace_at_a_cut_depth_is_recorded(tmp_path,
+                                                     monkeypatch):
+    """A ``ModelConfig`` is traced as given: qwen3-0.6b's decode at full
+    width and ``zoo_expected.py``'s ``FULL_LAYERS`` layers (the trace the
+    chip smoke test times) is the recorded eDAG, and the trace store keeps
+    it under its own key, not the named config's."""
+    monkeypatch.setenv("EDAN_TRACE_STORE", str(tmp_path))
+    want = expected()
+    arch, phase = want["config"]["full"]
+    cfg = dataclasses.replace(get_config(arch),
+                              n_layers=want["config"]["full_layers"])
+    g = tracing.trace_model(cfg, phase)
+    got = want["full_trace"]
+    assert (g.n_vertices, g.n_edges, int(g.is_mem.sum())) == \
+        (got["vertices"], got["edges"], got["mem_vertices"])
+    assert g.trace_digest() == got["digest"]
+    index = json.loads((tmp_path / tracing._INDEX_NAME).read_text())
+    assert list(index.values()) == [got["digest"]]
+    assert not any(k.startswith(arch + "|") for k in index)
 
 
 def _tiny_graph():

@@ -7,20 +7,31 @@ on 8 host devices, on the CPU.
   six families, on the (2, 4) mesh and on both production meshes (a JAX
   child process faking 512 devices).
 * 8 ``gloo`` ranks on (2, 4) (``python -m repro_torch.launch.sharded
-  --case fixture --checks``) run every case of ``configs/shard_expected.json``
-  (``tools/shard_expected.py``): every loss and learning rate within
-  1e-5 relative, the gradient norms and each rank's shard of every
-  parameter and AdamW moment within ``TOL`` (``DRIFT_TOL`` for the MoE
-  case's later gradient norms, ``MOMENT_DRIFT_TOL`` for the moments of the
-  MoE and rwkv6 cases; ROADMAP §C 19).  The same runs equal the port's
+  --case fixture --checks``) run every case of
+  ``configs/shard_expected.json`` (``tools/shard_expected.py``: qwen3,
+  granite-moe, rwkv6, internvl2 with its ``prefix_embeds``, zamba2 and
+  seamless with its ``frame_embeds``), each on the tensor-parallel path:
+  the first step's loss within 1e-5 relative and its gradient norm and
+  first moments within ``TOL``, every loss and learning rate within 1e-5,
+  the gradient norms and each rank's shard of every parameter and AdamW
+  moment within ``TOL``, but where ``DRIFT_BOUNDS`` widens them from the
+  reference's own drift (ROADMAP §C 19).  The same runs equal the port's
   single-rank ``make_train_step`` to the same tolerances, but for the MoE
   case: there the reference's own mesh run is not its single-device run
   (its ``shard_map`` takes the capacity and the load-balancing term per
   block of tokens), and the port follows the mesh run.
+* On that path no rank gathers a leaf over ``model``: the FSDP gathers
+  move each rank's ``data`` block of its ``model`` shard, once per use.
 * A batch with an uneven ``mask``: the loss is the global token mean, as
   the single-rank step's.
 * The sum over ``model`` of a replicated leaf's gradient dropped
-  (``collectives.sum_unnamed`` monkeypatched in the ranks) is caught.
+  (``collectives.sum_unnamed`` monkeypatched in the ranks), and zamba2's
+  gated norm without its sum over ``model`` (``parallel._norm_sum``), are
+  caught.
+* A layout whose heads do not split over ``model`` takes the generic path
+  and equals one rank; ``path_for`` names the path of every family.
+* Step 1's gradient on the ranks (``launch.sharded.first_grads``) equals
+  one process's, leaf by leaf.
 * A checkpoint written at step 2 by the ranks resumes on one rank, and
   one written by one rank resumes on the ranks (through the launcher,
   ``--ranks 8 --model-parallel 4``), each equal at step 3 to the
@@ -29,9 +40,10 @@ on 8 host devices, on the CPU.
 * One live child process runs the tool's first case, so that the
   fixture cannot go stale.
 
-Every child process runs in the module's fixture (~40 s on 8 cores): the
+Every child process runs in the module's fixture (~50 s on 8 cores): the
 two JAX children beside the 8 ranks of the fixture case, then the
 launcher's 8 ranks."""
+import dataclasses
 import json
 import os
 import re
@@ -54,7 +66,7 @@ from repro_torch.models.module import (init_params_numpy, params_from_numpy,
                                        tree_leaves)
 from repro_torch.models.parallel import path_for, rank_rows
 from repro_torch.sharding import named_sharding, param_partition_specs
-from repro_torch.sharding.rules import DEFAULT_RULES
+from repro_torch.sharding.rules import DEFAULT_RULES, spec_axes
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.optimizer import adamw_init
 from repro_torch.train.train_loop import (flatten_specs, jit_train_step,
@@ -136,46 +148,35 @@ def _popen(args, log: Path):
                                 stderr=subprocess.STDOUT)
 
 
-def _single_run(cfg, microbatches: int, batches):
+def _single_run(cfg, microbatches: int, batches, tc=None):
     """The port's single-rank ``make_train_step`` on the file's seeded
-    weights and its case's settings: (metrics, final params, final
-    opt)."""
+    weights and its case's settings (or ``tc``), in the file's layout:
+    the metrics, the shards of the final state and of the first moment
+    after the first step by mesh position; and the final state."""
     api = get_model(cfg)
     params = params_from_numpy(init_params_numpy(api.specs(),
                                                  SE.PARAM_SEED))
     opt = adamw_init(params)
-    step = make_train_step(api, S.case_train(cfg.name, microbatches,
-                                             TrainConfig))
-    rows = dict(loss=[], grad_norm=[], lr=[])
+    step = make_train_step(api, tc or S.case_train(cfg.name, microbatches,
+                                                   TrainConfig))
+    rows, first = dict(loss=[], grad_norm=[], lr=[]), None
     for b in batches:
         params, opt, m = step(params, opt, {k: torch.from_numpy(v)
                                             for k, v in b.items()})
         for k in rows:
             rows[k].append(float(m[k]))
-    return rows, params, opt
-
-
-def _by_position(state, cfg) -> dict:
-    """{``d<i>m<j>``: summaries of that position's blocks of the full
-    ``state``}, as the (2, 4) mesh's ``pspecs`` lay them out."""
-    mesh = Mesh({"data": S.MESH[0], "model": S.MESH[1]})
-    pspecs, opt_specs, _ = shardings_for_train(get_model(cfg), mesh)
-    flat = ckpt._flatten(state)
-    specs = flatten_specs({"params": pspecs, "opt": opt_specs})
-    assert list(specs) == list(flat)
-    out = {}
-    for r in range(mesh.size):
-        c = mesh.coords_of(r)
-        out[f"d{c['data']}m{c['model']}"] = {
-            k: S.summary(named_sharding(mesh, specs[k]).block(v, c).numpy())
-            for k, v in flat.items() if k != "opt/.step"}
-    return out
+        if first is None:
+            first = {k: v.numpy() for k, v in ckpt._flatten(
+                {"opt": opt}).items() if k.startswith(SE.FIRST_PREFIX)}
+    state = {"params": params, "opt": opt}
+    full = {k: v.numpy() for k, v in ckpt._flatten(state).items()
+            if k != "opt/.step"}
+    return dict(rows, shards=SE.by_position(full, cfg),
+                first_mu=SE.by_position(first, cfg)), state
 
 
 def _batches(cfg):
-    data = SyntheticLMData(vocab_size=cfg.padded_vocab(), seq_len=S.SEQ,
-                           global_batch=S.BATCH, seed=S.DATA_SEED)
-    return [data.batch(s) for s in range(S.STEPS)]
+    return S.case_batches(cfg, SyntheticLMData)
 
 
 @pytest.fixture(scope="module")
@@ -230,9 +231,10 @@ def runs(tmp_path_factory):
 def _gathered(ranks, name) -> dict:
     """One run of the ranks in the file's layout."""
     r0 = ranks[0]["runs"][name]
+    pos = [f"d{r['coords']['data']}m{r['coords']['model']}" for r in ranks]
     return dict(loss=r0["loss"], grad_norm=r0["grad_norm"], lr=r0["lr"],
-                shards={f"d{r['coords']['data']}m{r['coords']['model']}":
-                        r["runs"][name]["shards"] for r in ranks})
+                **{k: {p: r["runs"][name][k] for p, r in zip(pos, ranks)}
+                   for k in ("shards", "first_mu")})
 
 
 # -------------------------------------------------------- named_sharding
@@ -284,8 +286,7 @@ def test_fixture_case_equals_the_reference(runs, name):
     err = SE.compare(_gathered(runs["ranks"], name),
                      EXPECTED["cases"][name])
     assert not SE.over_tolerance(arch, err), err
-    want = "generic" if arch == "rwkv6-7b" else "tp"
-    assert runs["ranks"][0]["runs"][name]["path"] == want
+    assert runs["ranks"][0]["runs"][name]["path"] == "tp"
 
 
 @pytest.mark.parametrize("name", [n for n in CASE_NAMES
@@ -293,9 +294,7 @@ def test_fixture_case_equals_the_reference(runs, name):
 def test_fixture_case_equals_one_rank(runs, name):
     arch, size, mb = SE.CASES[CASE_NAMES.index(name)]
     cfg = S.case_config(arch, size, ARCHS)
-    rows, params, opt = _single_run(cfg, mb, _batches(cfg))
-    one = dict(rows, shards=_by_position({"params": params, "opt": opt},
-                                         cfg))
+    one, _ = _single_run(cfg, mb, _batches(cfg))
     err = SE.compare(_gathered(runs["ranks"], name), one)
     assert not SE.over_tolerance(arch, err), err
 
@@ -306,18 +305,16 @@ def test_moe_mesh_run_is_not_the_single_device_run(runs):
     mesh (above), and differ from one rank as the reference does."""
     name = CASE_NAMES[3]
     cfg = S.case_config(*SE.CASES[3][:2], ARCHS)
-    rows, _, _ = _single_run(cfg, 1, _batches(cfg)[:1])
+    one, _ = _single_run(cfg, 1, _batches(cfg)[:1])
     ranks = runs["ranks"][0]["runs"][name]
     ref = EXPECTED["cases"][name]
     assert abs(ranks["loss"][0] - ref["loss"][0]) < 1e-5 * ref["loss"][0]
-    assert abs(rows["loss"][0] - ref["loss"][0]) > 1e-5 * ref["loss"][0]
+    assert abs(one["loss"][0] - ref["loss"][0]) > 1e-5 * ref["loss"][0]
 
 
 def test_uneven_mask_takes_the_global_token_mean(runs):
     cfg = ARCHS["qwen3-0.6b"].reduced()
-    rows, params, opt = _single_run(cfg, 1, [S.masked_batch(cfg)])
-    one = dict(rows, shards=_by_position({"params": params, "opt": opt},
-                                         cfg))
+    one, state = _single_run(cfg, 1, [S.masked_batch(cfg)])
     err = SE.compare(_gathered(runs["ranks"], "mask"), one)
     assert not SE.over_tolerance("qwen3-0.6b", err), err
     # a mean of the ranks' own means is not this loss
@@ -326,7 +323,7 @@ def test_uneven_mask_takes_the_global_token_mean(runs):
     assert m.sum(1)[0] != m.sum(1)[1]
     # rank 0's assembled state (``assemble_tree``) is the one rank's
     full = np.load(runs["out"] / "ranks" / "mask.npz")
-    want = ckpt._flatten({"params": params, "opt": opt})
+    want = ckpt._flatten(state)
     assert sorted(full.files) == sorted(want)
     for k, v in want.items():       # each leaf against its magnitude
         v = v.numpy()
@@ -347,22 +344,14 @@ def test_cast_params_bf16_equals_one_rank(runs):
     within 1e-5, the gradient norm and the parameters within ``TOL``, the
     moments within ``BF16_MOMENT_TOL``."""
     cfg = ARCHS["qwen3-0.6b"].reduced()
-    api = get_model(cfg)
-    params = params_from_numpy(init_params_numpy(api.specs(),
-                                                 SE.PARAM_SEED))
-    step = make_train_step(api, TrainConfig(cast_params_bf16=True,
-                                            **S.TRAIN))
-    b = _batches(cfg)[0]
-    params, opt, m = step(params, adamw_init(params),
-                          {k: torch.from_numpy(v) for k, v in b.items()})
-    one = dict(loss=[float(m["loss"])], grad_norm=[float(m["grad_norm"])],
-               lr=[float(m["lr"])],
-               shards=_by_position({"params": params, "opt": opt}, cfg))
+    one, _ = _single_run(cfg, 1, _batches(cfg)[:1], TrainConfig(
+        cast_params_bf16=True, **S.TRAIN))
     err = SE.compare(_gathered(runs["ranks"], "cast_bf16"), one)
     assert max(err["loss"], err["lr"]) <= SE.LOSS_TOL, err
     assert max(err["grad_norm"], err["params_sumsq"],
                err["params_vals"]) <= SE.TOL, err
-    assert max(err["moments_sumsq"], err["moments_vals"]) <= \
+    assert max(err["moments_sumsq"], err["moments_vals"],
+               err["first_moments_sumsq"], err["first_moments_vals"]) <= \
         BF16_MOMENT_TOL, err
 
 
@@ -372,6 +361,80 @@ def test_dropping_the_model_sum_is_caught(runs):
     bad = SE.over_tolerance("qwen3-0.6b", err)
     assert bad and any(k.startswith(("grad_norm", "params", "moments"))
                        for k in bad), err
+
+
+def test_dropping_the_gated_norm_sum_is_caught(runs):
+    """zamba2's gated norm over the rank's own ``d_in`` columns only (its
+    sum of squares not summed over ``model``) is caught at the first
+    step, where the case itself holds to ``LOSS_TOL`` and ``TOL``."""
+    name = next(n for n in CASE_NAMES if n.startswith(S.NORM_CASE))
+    want = EXPECTED["cases"][name]
+    got = _gathered(runs["ranks"], "drop_norm_sum")
+    err = {}
+    SE._shard_errs(got["first_mu"], want["first_mu"], err)
+    loss = abs(got["loss"][0] - want["loss"][0]) / want["loss"][0]
+    assert loss > SE.LOSS_TOL and err["moments_vals"] > SE.TOL, (loss, err)
+
+
+def test_generic_path_equals_one_rank(runs):
+    """A dense model whose heads do not split over ``model`` takes the
+    generic path on the ranks, and its step equals one rank's."""
+    cfg = S.generic_config(ARCHS)
+    one, _ = _single_run(cfg, 1, _batches(cfg)[:1], TrainConfig(**S.TRAIN))
+    got = _gathered(runs["ranks"], "generic")
+    assert runs["ranks"][0]["runs"]["generic"]["path"] == "generic"
+    err = SE.compare(got, one)
+    assert not SE.over_tolerance(cfg.name, err), err
+
+
+def test_first_grads_leaf_norms_equal_one_process(runs):
+    """``launch.sharded.first_grads`` on the ranks (the sharded step's
+    gradient of step 1, which ``chip_smoke.py`` phase "shard" holds leaf
+    by leaf at full width) equals one process's: the loss within
+    ``LOSS_TOL`` and the norm of every leaf within ``TOL``, on every
+    rank."""
+    one = S.first_grads(S.case_config(S.GRADS_CASE, "reduced", ARCHS),
+                        "cpu")
+    got = runs["ranks"][0]["runs"]["first_grads"]
+    assert all(r["runs"]["first_grads"] == got for r in runs["ranks"])
+    assert abs(got["loss"] - one["loss"]) <= SE.LOSS_TOL * abs(one["loss"])
+    assert got["grad_norms"].keys() == one["grad_norms"].keys()
+    bad = {k: (got["grad_norms"][k], v) for k, v in one["grad_norms"].items()
+           if not abs(got["grad_norms"][k] - v) <= SE.TOL * v}
+    assert not bad, bad
+
+
+#: the subtrees of stacked layers, each gathered in its rematerialised
+#: block: in the forward and again in the backward's recompute
+_STACKED = ("blocks", "groups", "tail", "enc_blocks", "dec_blocks")
+
+
+@pytest.mark.parametrize("name", CASE_NAMES)
+def test_tp_gathers_only_data_blocks(runs, name):
+    """On the TP path no rank gathers a leaf over ``model``: per step and
+    rank the FSDP gathers (``gather_params:<axes>``) run over ``data``
+    alone and move, for each leaf sharded over ``data``, the rank's block
+    of it (its ``model`` shard's ``data`` block), once per use: twice for
+    a layer's leaf (its block's forward and its recompute), once for the
+    others, per microbatch."""
+    arch, size, mb = SE.CASES[CASE_NAMES.index(name)]
+    cfg = S.case_config(arch, size, ARCHS)
+    api = get_model(cfg)
+    mesh = Mesh({"data": S.MESH[0], "model": S.MESH[1]})
+    specs = flatten_specs(shardings_for_train(api, mesh)[0])
+    shapes = {k: s.shape for k, s in ckpt._flatten(api.specs()).items()}
+    want = 0
+    for key, spec in specs.items():
+        axes = [a for ax in spec_axes(spec, len(shapes[key])) for a in ax]
+        if "data" in axes:
+            uses = 2 if key.split("/")[0] in _STACKED else 1
+            want += uses * 4 * int(np.prod(shapes[key])) // int(
+                np.prod([mesh.shape[a] for a in axes]))
+    for r in runs["ranks"]:
+        counts = r["runs"][name]["collectives"]
+        gathers = sorted(k for k in counts if k.startswith("gather_params"))
+        assert gathers == ["gather_params:data"], gathers
+        assert counts["gather_params:data"][1] == want * mb * S.STEPS
 
 
 def test_live_reference_case_equals_the_fixture(runs):
@@ -460,13 +523,25 @@ def test_rank_rows_take_each_microbatch_block():
         rank_rows(6, mesh, 2)
 
 
-@pytest.mark.parametrize("arch", FAMILIES)
+#: layouts whose heads do not divide the 4-way ``model`` axis
+_UNSPLIT = {"qwen3-0.6b": dict(n_heads=S.GENERIC_HEADS),
+            "rwkv6-7b": dict(d_model=48, n_heads=3)}
+
+
+@pytest.mark.parametrize("arch", FAMILIES + tuple(
+    f"{a}:unsplit" for a in _UNSPLIT))
 def test_path_for_each_family(arch):
-    """The transformer families take tensor parallelism; the others the
-    named generic path, never one rank's."""
+    """Every family takes tensor parallelism on (2, 4), at full size and
+    reduced; a layout whose heads do not split over ``model`` the named
+    generic path, never one rank's."""
     mesh = Mesh({"data": 2, "model": 4})
-    api = get_model(ARCHS[arch])
-    pspecs, _, _ = shardings_for_train(api, mesh)
-    want = "tp" if api.cfg.family in ("dense", "moe") else "generic"
-    assert path_for(api.cfg, mesh, pspecs) == want
-    assert tree_leaves(pspecs)
+    name, _, unsplit = arch.partition(":")
+    cfgs = [ARCHS[name], ARCHS[name].reduced()]
+    if unsplit:
+        cfgs = [dataclasses.replace(cfgs[1], **_UNSPLIT[name])]
+    for cfg in cfgs:
+        api = get_model(cfg)
+        pspecs, _, _ = shardings_for_train(api, mesh)
+        assert path_for(cfg, mesh, pspecs) == ("generic" if unsplit
+                                               else "tp")
+        assert tree_leaves(pspecs)

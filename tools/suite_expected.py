@@ -25,7 +25,9 @@ For (a) and (c) it also records how many (member, pair, point) entries the
 union schedule did not certify and the per-member ``simulate_batch``
 answered (``fallback_points``): a port whose level kernel is wrong on a
 union plan answers those points from its member plans, so the count is what
-shows the fault.
+shows the fault.  For (c) also per member (``fallback_points_by_member``:
+each member's blocks are certified on their own, so a suite of some
+members falls back at the sum of theirs).
 
 Writes ``src/repro_torch/configs/suite_expected.json``.
 
@@ -69,7 +71,12 @@ def plain(x):
 
 class count_fallbacks:
     """Counts, inside the block, the points that the reference suite's
-    per-member ``simulate_batch`` fallback answered (``.points``)."""
+    per-member ``simulate_batch`` fallback answered (``.points``), and
+    per member of ``names`` (``.by_member``; ``members`` the graphs)."""
+
+    def __init__(self, members=(), names=()):
+        self.names = {id(g): n for g, n in zip(members, names)}
+        self.by_member = dict.fromkeys(names, 0)
 
     def __enter__(self):
         from repro.core import suite as SU
@@ -77,6 +84,8 @@ class count_fallbacks:
 
         def counted(g, alphas, *args, **kw):
             self.points += len(alphas)
+            if id(g) in self.names:
+                self.by_member[self.names[id(g)]] += len(alphas)
             return self.orig(g, alphas, *args, **kw)
 
         SU.simulate_batch = counted
@@ -147,7 +156,7 @@ def main() -> None:
         g.set_mem_classes(object_class_map(g, objs))
     rows = class_rows(max(n_obj))
     cls_suite = EDagSuite(members, names=names)
-    with count_fallbacks() as cls_fb:
+    with count_fallbacks(members, names) as cls_fb:
         cls_grid = suite_sweep_grid(cls_suite, rows, ms=GRID["ms"],
                                     compute_slots=GRID["compute_slots"])
     for g in members:
@@ -165,7 +174,8 @@ def main() -> None:
         report=report,
         class_grid=dict(n_objects=n_obj, rows=plain(rows),
                         grid=plain(cls_grid),
-                        fallback_points=cls_fb.points),
+                        fallback_points=cls_fb.points,
+                        fallback_points_by_member=cls_fb.by_member),
         placement=dict(config=PLACEMENT, cg_n=CG_N, traces=places)),
         indent=None, separators=(",", ":")) + "\n")
     print(f"wrote {OUT} in {seconds:.1f} s")

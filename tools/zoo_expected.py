@@ -8,7 +8,8 @@ eDAGs, which reach it through ``EDag.from_arrays``:
   decode, and the train phase of ``TRAIN``'s configs (seq_len 32, batch
   2, the tracing defaults): vertices, edges, memory vertices, digest and
   the ``dot_general`` vertices' count and FLOPs; ``full_trace``: qwen3-0.6b
-  decode at full width, the same summary;
+  decode at full width, its depth cut to ``FULL_LAYERS`` of its 28
+  layers, the same summary;
 * ``reference_traces``: the JAX package's own trace of the same requests
   (``repro.models.tracing.trace_model``), the same counts beside them (the
   frameworks decompose the models differently: ROADMAP §C 15);
@@ -28,6 +29,7 @@ Usage: PYTHONPATH=src JAX_PLATFORMS=cpu python tools/zoo_expected.py
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 from pathlib import Path
@@ -41,6 +43,8 @@ OUT = ROOT / "src" / "repro_torch" / "configs" / "zoo_expected.json"
 
 TRAIN = ("qwen3-0.6b", "seamless-m4t-large-v2")
 FULL = ("qwen3-0.6b", "decode")
+#: the full-width trace's depth (``chip_smoke.py`` phase "zoo" times it)
+FULL_LAYERS = 4
 GRID = dict(alphas=np.linspace(50.0, 300.0, 13).tolist(), ms=[2, 4, 8],
             compute_slots=[0, 8])
 SERVICE = dict(phase="decode", alphas=[60.0, 140.0, 200.0], ms=[2, 4],
@@ -138,6 +142,7 @@ def main() -> None:
     os.environ.pop("EDAN_TRACE_STORE", None)
     import repro.core as R
     from repro.models import tracing as RT
+    from repro_torch.configs import get_config
     from repro_torch.models import tracing as PT
     port, ref, graphs = {}, {}, {}
     for name, phase in requests_of(PT.ZOO):
@@ -148,7 +153,9 @@ def main() -> None:
                            digest=False)
         print(f"{key}: port {port[key]['vertices']} vertices, reference "
               f"{ref[key]['vertices']}", flush=True)
-    full = summary(PT.trace_model(*FULL, reduced=False, use_store=False))
+    full = summary(PT.trace_model(
+        dataclasses.replace(get_config(FULL[0]), n_layers=FULL_LAYERS),
+        FULL[1], use_store=False))
     names = list(PT.ZOO.values())
     suite = R.EDagSuite([reference_edag(graphs[f"{n}:prefill"])
                          for n in names], names=names)
@@ -158,6 +165,7 @@ def main() -> None:
     svc = service({n: graphs[f"{n}:{SERVICE['phase']}"]
                    for n in SERVICE["union"]})
     doc = dict(config=dict(zoo=PT.ZOO, train=list(TRAIN), full=list(FULL),
+                           full_layers=FULL_LAYERS,
                            seq_len=32, batch_size=2,
                            mem_threshold_bytes=PT.DEFAULT_MEM_THRESHOLD,
                            grid=GRID, service=SERVICE),
