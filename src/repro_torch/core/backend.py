@@ -49,6 +49,7 @@ import torch
 
 from ..kernels.level_step import level_step
 from .counters import Stats
+from .spans import spanned
 
 _BACKENDS = ("cuda", "cpu")
 _REPLAY_DTYPES = ("float32", "float64")
@@ -345,6 +346,7 @@ def levelize(src: np.ndarray, dst: np.ndarray, n: int) -> np.ndarray:
 
 # ------------------------------------------------------------------ dispatch
 
+@spanned("edan.k1")
 def _pass(lv: LevelCSR, F: torch.Tensor, clamp: bool,
           R_out: Optional[torch.Tensor]) -> torch.Tensor:
     """One level pass on ``F``'s device: the CUDA kernel for a tensor on
@@ -438,6 +440,7 @@ def _count_pass(F: torch.Tensor) -> None:
     stats.add("cuda_chunks" if F.is_cuda else "cpu_chunks")
 
 
+@spanned("edan.backend.accumulate")
 def replay_accumulate(lv: LevelCSR, F: torch.Tensor, quanta,
                       clamp: bool = False,
                       R_out: Optional[torch.Tensor] = None,

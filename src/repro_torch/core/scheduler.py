@@ -38,6 +38,7 @@ whole alpha axis, chunked under the policy's memory budget.
 """
 from __future__ import annotations
 
+import contextlib
 import heapq
 import time
 from types import SimpleNamespace
@@ -50,6 +51,7 @@ from . import backend as _bk
 from . import schedule_cache as _sc
 from .graph import EDag
 from .plan import ExecPolicy, SweepSpec
+from .spans import grid_span, span, spanned
 
 # Below this many sweep points the recording run cannot amortize.
 _MIN_BATCH_POINTS = 2
@@ -460,6 +462,7 @@ class _ReplayPlan:
                 need_chk=_to_dev(self.need_chk, device, np.int64)))
         return self._dev[1]
 
+    @spanned("edan.replay")
     def replay(self, alphas: np.ndarray, unit: float,
                policy: Optional[ExecPolicy] = None):
         """Evaluate all points at once: returns finish times F and ready
@@ -685,17 +688,28 @@ def _get_plan(g: EDag, key) -> Optional[_ReplayPlan]:
     return None
 
 
+@contextlib.contextmanager
+def _recording(rerecord: bool = False):
+    """One schedule recording: counted in ``record_runs``, its host time
+    added to ``record_seconds``, and spanned as ``edan.sched.record`` (or
+    ``edan.sched.rerecord`` for points the plan in hand did not
+    certify)."""
+    stats.add("record_runs")
+    t0 = time.perf_counter()
+    with span("edan.sched.rerecord" if rerecord else "edan.sched.record"):
+        yield
+    stats.add("record_seconds", time.perf_counter() - t0)
+
+
 def _record_plan(g: EDag, sim_lists, m: int, cs: int, a0: float,
-                 unit: float, persist: bool):
+                 unit: float, persist: bool, rerecord: bool = False):
     """One instrumented reference run -> (master makespan, replay plan);
     when ``persist`` the plan is memoized and, for traces of at least
     ``schedule_cache.min_vertices()``, stored on disk."""
-    stats.add("record_runs")
-    t0 = time.perf_counter()
-    mk0, topo, O_mem, O_alu = _event_loop(
-        g.is_mem, sim_lists, m, a0, unit, cs, record=True)
-    plan = _ReplayPlan(g, topo, O_mem, O_alu, m, cs)
-    stats.add("record_seconds", time.perf_counter() - t0)
+    with _recording(rerecord):
+        mk0, topo, O_mem, O_alu = _event_loop(
+            g.is_mem, sim_lists, m, a0, unit, cs, record=True)
+        plan = _ReplayPlan(g, topo, O_mem, O_alu, m, cs)
     if persist:
         _memo_plan(g, (m, cs, float(unit)), plan)
         if g.n_vertices >= _sc.min_vertices():
@@ -705,15 +719,14 @@ def _record_plan(g: EDag, sim_lists, m: int, cs: int, a0: float,
 
 
 def _record_plan_classes(g: EDag, sim_lists, m: int, cs: int, a0,
-                         cls: np.ndarray, unit: float, key, persist: bool):
+                         cls: np.ndarray, unit: float, key, persist: bool,
+                         rerecord: bool = False):
     """Class-mode twin of ``_record_plan`` (slot provenance recorded)."""
-    stats.add("record_runs")
-    t0 = time.perf_counter()
-    mk0, topo, O_mem, O_alu, prov = _event_loop_classes(
-        g.is_mem, sim_lists, m, a0, cls, unit, cs, record=True)
-    plan = _ReplayPlan(g, topo, O_mem, O_alu, m, cs, prov=prov,
-                       classes=cls)
-    stats.add("record_seconds", time.perf_counter() - t0)
+    with _recording(rerecord):
+        mk0, topo, O_mem, O_alu, prov = _event_loop_classes(
+            g.is_mem, sim_lists, m, a0, cls, unit, cs, record=True)
+        plan = _ReplayPlan(g, topo, O_mem, O_alu, m, cs, prov=prov,
+                           classes=cls)
     if persist:
         _memo_plan(g, key, plan)
     return mk0, plan
@@ -757,16 +770,18 @@ def _batch_uniq(g: EDag, alphas: np.ndarray, m: int, cs: int, unit: float,
     plan = _get_plan(g, key) if pol.use_cache else None
     mk0: Optional[float] = None       # master makespan; None for reused plans
     persist = pol.use_cache and plan is None
+    first = True                      # no plan has been tried yet
     while remaining.size:
         reused = plan is not None and mk0 is None
         if plan is None:
             a0 = alphas[remaining[0]]
             if classes:
                 mk0, plan = _record_plan_classes(g, sim_lists, m, cs, a0, cls,
-                                                 unit, key, persist)
+                                                 unit, key, persist,
+                                                 rerecord=not first)
             else:
                 mk0, plan = _record_plan(g, sim_lists, m, cs, float(a0),
-                                         unit, persist)
+                                         unit, persist, rerecord=not first)
             # only the sweep's first recording is worth keeping: later
             # ones are per-point fallbacks for tie-shifted orders
             persist = False
@@ -775,14 +790,15 @@ def _batch_uniq(g: EDag, alphas: np.ndarray, m: int, cs: int, unit: float,
         for c0 in range(0, remaining.size, chunk):
             sel = remaining[c0:c0 + chunk]
             F, R = plan.replay(alphas[sel], unit, policy=pol)
-            d = plan.dev(F.device)
-            okc = _verify_class(g, d.rank, F, R, d.O_mem, d.Om_rel)
-            if classes:
-                okc &= _verify_slots(plan, F)
-            if cs:
-                okc &= _verify_class(g, d.rank, F, R, d.O_alu, d.Oa_rel)
-            okc = okc.cpu().numpy()
-            mk = F.amax(dim=0).cpu().numpy()
+            with span("edan.verify"):
+                d = plan.dev(F.device)
+                okc = _verify_class(g, d.rank, F, R, d.O_mem, d.Om_rel)
+                if classes:
+                    okc &= _verify_slots(plan, F)
+                if cs:
+                    okc &= _verify_class(g, d.rank, F, R, d.O_alu, d.Oa_rel)
+                okc = okc.cpu().numpy()
+                mk = F.amax(dim=0).cpu().numpy()
             out[sel[okc]] = mk[okc]
             ok[c0:c0 + chunk] = okc
         if not ok[0] and mk0 is not None:
@@ -795,6 +811,7 @@ def _batch_uniq(g: EDag, alphas: np.ndarray, m: int, cs: int, unit: float,
             persist = pol.use_cache
         remaining = remaining[~ok]
         plan, mk0 = None, None
+        first = False
     return out
 
 
@@ -837,7 +854,8 @@ def simulate_batch(g: EDag, alphas, m: int = 4, unit: float = 1.0,
                              policy=policy)
     spec = SweepSpec.make(alphas, ms=(m,), compute_slots=(compute_slots,),
                           unit=unit)
-    return _batch_for_pair(g, spec, spec.ms[0], spec.css[0], pol)
+    with grid_span():
+        return _batch_for_pair(g, spec, spec.ms[0], spec.css[0], pol)
 
 
 def latency_sweep(g: EDag, alphas, m: int = 4, unit: float = 1.0,
@@ -862,7 +880,8 @@ def latency_sweep(g: EDag, alphas, m: int = 4, unit: float = 1.0,
     use_batch = (spec.n_points >= _MIN_BATCH_POINTS if batch is None
                  else bool(batch))
     if use_batch:
-        return _batch_for_pair(g, spec, spec.ms[0], spec.css[0], pol)
+        with grid_span():
+            return _batch_for_pair(g, spec, spec.ms[0], spec.css[0], pol)
     sim_lists = g._sim_lists()
     m, cs = spec.ms[0], spec.css[0]
     if spec.class_mode:
@@ -876,12 +895,14 @@ def latency_sweep(g: EDag, alphas, m: int = 4, unit: float = 1.0,
 
 def _sweep_grid_spec(g: EDag, spec: SweepSpec,
                      pol: ExecPolicy) -> np.ndarray:
-    """``sweep_grid`` on a pre-normalized query."""
+    """``sweep_grid`` on a pre-normalized query (the report layer calls it
+    directly)."""
     g._finalize()
     out = np.zeros((spec.n_points, len(spec.ms), len(spec.css)))
-    for j, mm in enumerate(spec.ms):
-        for l, cs in enumerate(spec.css):
-            out[:, j, l] = _batch_for_pair(g, spec, mm, cs, pol)
+    with grid_span():
+        for j, mm in enumerate(spec.ms):
+            for l, cs in enumerate(spec.css):
+                out[:, j, l] = _batch_for_pair(g, spec, mm, cs, pol)
     return out
 
 

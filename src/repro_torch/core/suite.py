@@ -46,7 +46,6 @@ batched span pass over the union and segments it per trace, and
 """
 from __future__ import annotations
 
-import time
 from collections import OrderedDict
 from types import SimpleNamespace
 from typing import Optional, Sequence
@@ -60,10 +59,11 @@ from . import scheduler as _sched
 from .counters import Stats
 from .graph import EDag, _auto_sweep_chunk, concat_edags
 from .plan import ExecPolicy, SweepSpec
+from .spans import grid_span, span, spanned
 from .scheduler import (_ReplayPlan, _attach_queue_partition,
                         _aug_level_valid, _event_loop, _event_loop_classes,
                         _memo_plan, _prov_check_arrays, _prov_qpred,
-                        _slot_qpred, _sweep_grid_spec, _to_dev,
+                        _recording, _slot_qpred, _sweep_grid_spec, _to_dev,
                         _validate_schedule, _verify_class, _verify_slots,
                         simulate_batch)
 
@@ -266,6 +266,7 @@ class _SuitePlan:
                 cls_mem=_to_dev(self.cls_mem, device, np.int64)))
         return self._dev[1]
 
+    @spanned("edan.replay")
     def replay(self, alphas: np.ndarray, unit: float,
                pol: Optional[ExecPolicy] = None):
         """All blocks × all points at once: finish and ready times, both
@@ -288,15 +289,6 @@ class _SuitePlan:
         pol.accumulate(self.lv, F, _bk.column_quanta(alphas, unit),
                        clamp=False, R_out=R)
         return F, R
-
-
-def _record(fn, *args):
-    """One instrumented recording run, counted in the scheduler's stats."""
-    _sched.stats.add("record_runs")
-    t0 = time.perf_counter()
-    got = fn(*args, record=True)
-    _sched.stats.add("record_seconds", time.perf_counter() - t0)
-    return got
 
 
 def _member_schedule(g: EDag, m: int, cs: int, unit: float, a0: float,
@@ -322,8 +314,9 @@ def _member_schedule(g: EDag, m: int, cs: int, unit: float, a0: float,
                     _sched.stats.add("disk_hits")
                     return topo, O_mem, O_alu, level, False
         _sched.stats.add("misses")
-    _, topo, O_mem, O_alu = _record(_event_loop, g.is_mem, g._sim_lists(),
-                                    m, a0, unit, cs)
+    with _recording():
+        _, topo, O_mem, O_alu = _event_loop(g.is_mem, g._sim_lists(), m, a0,
+                                            unit, cs, record=True)
     return topo, O_mem, O_alu, None, True
 
 
@@ -342,11 +335,13 @@ def _member_schedule_classes(g: EDag, m: int, cs: int, unit: float,
             _sched.stats.add("memory_hits")
             return p.topo, p.O_mem, p.O_alu, p.prov, p.level_aug, False
         _sched.stats.add("misses")
-    _, topo, O_mem, O_alu, prov = _record(
-        _event_loop_classes, g.is_mem, g._sim_lists(), m, a0, cls, unit, cs)
+    with _recording():
+        _, topo, O_mem, O_alu, prov = _event_loop_classes(
+            g.is_mem, g._sim_lists(), m, a0, cls, unit, cs, record=True)
     return topo, O_mem, O_alu, prov, None, True
 
 
+@spanned("edan.suite.plan")
 def _build_suite_plan(suite: EDagSuite, pairs, unit: float, a0,
                       use_cache: bool,
                       member_idx: Optional[Sequence[int]] = None,
@@ -519,26 +514,27 @@ def _group_grid_batch(suite: EDagSuite, member_idx, out: np.ndarray,
     for c0 in range(0, P, chunk):
         cols = np.arange(c0, min(c0 + chunk, P))
         F, R = plan.replay(alphas[cols], unit, pol=pol)
-        mk = _bk.segment_max_rows(F[:-1], plan.seg_ptr)
-        oks = []
-        for blk in plan.blocks:
-            if blk is None:           # empty member: makespan 0 everywhere
-                oks.append(torch.ones(len(cols), dtype=torch.bool,
-                                      device=F.device))
-                continue
-            off, n = blk.off, blk.g.n_vertices
-            Fv, Rv = F[off:off + n], R[off:off + n]
-            d = blk.dev(F.device)
-            okc = _verify_class(blk.g, d.rank, Fv, Rv, d.O_mem, d.Om_rel)
-            if blk.prov is not None:
-                okc &= _verify_slots(blk, Fv)
-            if blk.cs:
-                okc &= _verify_class(blk.g, d.rank, Fv, Rv, d.O_alu,
-                                     d.Oa_rel)
-            oks.append(okc)
-        # the only transfers: per-block makespans and certificate masks
-        mk = mk.cpu().numpy()
-        okm = torch.stack(oks).cpu().numpy()
+        with span("edan.verify"):
+            mk = _bk.segment_max_rows(F[:-1], plan.seg_ptr)
+            oks = []
+            for blk in plan.blocks:
+                if blk is None:       # empty member: makespan 0 everywhere
+                    oks.append(torch.ones(len(cols), dtype=torch.bool,
+                                          device=F.device))
+                    continue
+                off, n = blk.off, blk.g.n_vertices
+                Fv, Rv = F[off:off + n], R[off:off + n]
+                d = blk.dev(F.device)
+                okc = _verify_class(blk.g, d.rank, Fv, Rv, d.O_mem, d.Om_rel)
+                if blk.prov is not None:
+                    okc &= _verify_slots(blk, Fv)
+                if blk.cs:
+                    okc &= _verify_class(blk.g, d.rank, Fv, Rv, d.O_alu,
+                                         d.Oa_rel)
+                oks.append(okc)
+            # the only transfers: per-block makespans and certificate masks
+            mk = mk.cpu().numpy()
+            okm = torch.stack(oks).cpu().numpy()
         for b, blk in enumerate(plan.blocks):
             ok[b, cols] = okm[b]
             if blk is not None:
@@ -549,15 +545,16 @@ def _group_grid_batch(suite: EDagSuite, member_idx, out: np.ndarray,
         # memo), and the stale union plan is dropped
         if pol.use_cache:
             suite._suite_plans.pop(key, None)
-        for b, blk in enumerate(plan.blocks):
-            if blk is None:
-                continue
-            bad = np.nonzero(~ok[b])[0]
-            if len(bad):
-                stats.add("fallback_points", len(bad))
-                out[blk.trace, bad, blk.pair] = simulate_batch(
-                    blk.g, alphas[bad], m=blk.m, unit=unit,
-                    compute_slots=blk.cs, policy=pol)
+        with span("edan.suite.fallback"):
+            for b, blk in enumerate(plan.blocks):
+                if blk is None:
+                    continue
+                bad = np.nonzero(~ok[b])[0]
+                if len(bad):
+                    stats.add("fallback_points", len(bad))
+                    out[blk.trace, bad, blk.pair] = simulate_batch(
+                        blk.g, alphas[bad], m=blk.m, unit=unit,
+                        compute_slots=blk.cs, policy=pol)
 
 
 # ------------------------------------------------------------- entry points
@@ -566,31 +563,32 @@ def _suite_sweep_grid_spec(suite: EDagSuite, spec: SweepSpec,
                            pol: ExecPolicy) -> np.ndarray:
     """``suite_sweep_grid`` on a pre-normalized query (the report layer
     calls it directly)."""
-    K = suite.n_traces
-    out = np.zeros((K, spec.n_points, len(spec.ms), len(spec.css)))
-    suite._check_members()
-    if K == 0 or spec.n_points == 0:
+    with grid_span():
+        K = suite.n_traces
+        out = np.zeros((K, spec.n_points, len(spec.ms), len(spec.css)))
+        suite._check_members()
+        if K == 0 or spec.n_points == 0:
+            return out
+        if spec.bad_costs or min(spec.ms, default=1) < 1:
+            # degenerate machine parameters take the per-member engine, which
+            # keeps the reference semantics
+            for k, g in enumerate(suite.members):
+                out[k] = _sweep_grid_spec(g, spec, pol)
+            return out
+        pairs = spec.pairs
+        res = np.zeros((K, spec.n_uniq, len(pairs)))
+        # one union plan per distinct m: blocks sharing m have about the same
+        # replay depth, so merging their compute_slots variants widens levels
+        # without deepening the union
+        groups: OrderedDict = OrderedDict()
+        for i, (mm, _cs) in enumerate(pairs):
+            groups.setdefault(mm, []).append(i)
+        for idxs in groups.values():
+            res[:, :, idxs] = _suite_grid_batch(
+                suite, spec.uniq, [pairs[i] for i in idxs], spec.unit, pol)
+        out[:] = spec.restore(res, axis=1).reshape(
+            K, spec.n_points, len(spec.ms), len(spec.css))
         return out
-    if spec.bad_costs or min(spec.ms, default=1) < 1:
-        # degenerate machine parameters take the per-member engine, which
-        # keeps the reference semantics
-        for k, g in enumerate(suite.members):
-            out[k] = _sweep_grid_spec(g, spec, pol)
-        return out
-    pairs = spec.pairs
-    res = np.zeros((K, spec.n_uniq, len(pairs)))
-    # one union plan per distinct m: blocks sharing m have about the same
-    # replay depth, so merging their compute_slots variants widens levels
-    # without deepening the union
-    groups: OrderedDict = OrderedDict()
-    for i, (mm, _cs) in enumerate(pairs):
-        groups.setdefault(mm, []).append(i)
-    for idxs in groups.values():
-        res[:, :, idxs] = _suite_grid_batch(
-            suite, spec.uniq, [pairs[i] for i in idxs], spec.unit, pol)
-    out[:] = spec.restore(res, axis=1).reshape(
-        K, spec.n_points, len(spec.ms), len(spec.css))
-    return out
 
 
 def suite_sweep_grid(suite: EDagSuite, alphas, ms=(4,), compute_slots=(0,),
