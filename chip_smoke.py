@@ -48,12 +48,13 @@ Phases, each timed; any failure ends the run with a non-zero exit:
              call's.
 4. main    — the paper runner (``repro_torch.launch.paper``) at the paper's
              sizes: PolyBench PAPER_15 at N=20 and HPCG 16^3 x 6 iterations
-             (1.79M vertices) under the default float32 replay policy, then
-             one latency sweep of the 32 kB HPCG trace with dirty alphas
-             under a replay budget that splits it into chunks (float32
-             columns demoted and rerun in float64 on the card), and the
-             policy-dependent figures (10/11 and 12) again under the
-             float64 policy.  Every printed line and every full-precision
+             (1.79M vertices) under the default replay policy (one
+             float64 pass per chunk on the card), then one latency sweep
+             of the 32 kB HPCG trace with dirty alphas under the float32
+             policy named and a replay budget that splits it into chunks
+             (float32 columns demoted and rerun in float64 on the card),
+             and the policy-dependent figures (10/11 and 12) again under
+             the float64 policy.  Every printed line and every full-precision
              value must equal ``src/repro_torch/configs/paper_expected.json``
              (the JAX package's results), and the kernel's launch counter
              must grow in every figure.
@@ -62,7 +63,7 @@ Phases, each timed; any failure ends the run with a non-zero exit:
              ``src/repro_torch/configs/suite_expected.json`` (the JAX
              package's results), every float exact: (a) ``suite_sweep_grid``
              over PAPER_15 at N=20 (15 traces, 554,380 vertices), 13 alphas
-             × m in (2, 4, 8) × (0, 8) ALU slots, default float32 policy and
+             × m in (2, 4, 8) × (0, 8) ALU slots, default policy and
              budget, cold, memo-warm, against the per-member ``sweep_grid``
              loop, and under a budget that splits it into replay groups and
              column chunks (replay chunks all on the card); (b)
@@ -115,8 +116,8 @@ Phases, each timed; any failure ends the run with a non-zero exit:
 9. service — ``benchmarks/perf_service.py``'s full stream (16 waves of 6
              requests over atax, bicg, mvt and gesummv at N=12) through
              the port's ``AnalysisService``: the clean stream (every
-             request on rung 0, ``("cuda", "float32")``, K1 on the card
-             only), the transient stream, the poisoned wave, a ``kernel``
+             request on rung 0, ``("cuda", None)``: the default, one
+             float64 pass, K1 on the card only), the transient stream, the poisoned wave, a ``kernel``
              fault (one rung down, on ``("cuda", "float64")``), a
              ``cache`` fault (quarantined and re-recorded) and one wave
              through the admission thread; every outcome and report the
@@ -710,11 +711,12 @@ def run_main_path(expected: dict, policy, figures, label: str) -> dict:
 
 def run_dirty_sweep(spec: dict) -> dict:
     """``latency_sweep`` of the JAX package's dirty sweep (HPCG, 32 kB
-    cache) on the card under the float32 policy, with a replay budget of
-    two columns per chunk: the makespans must equal the recorded ones bit
-    for bit, the budget must split the sweep, and columns must be demoted
-    and rerun in float64 on the card (a makespan that float32 cannot hold
-    proves the rerun's result).  Returns the stats it moved."""
+    cache) on the card under the float32 policy named, with a replay
+    budget of two columns per chunk: the makespans must equal the recorded
+    ones bit for bit, the budget must split the sweep, and columns must be
+    demoted by the certificate or its pre-screen and rerun in float64 on
+    the card (a makespan that float32 cannot hold proves the rerun's
+    result).  Returns the stats it moved."""
     import numpy as np
     from repro_torch.apps import hpcg
     from repro_torch.configs.paper_suite import ANALYSIS
@@ -730,6 +732,7 @@ def run_dirty_sweep(spec: dict) -> dict:
                          f"package traced {spec['n_vertices']}")
     alphas = spec["alphas"]
     pol = ExecPolicy.resolve(
+        replay_dtype="float32",
         mem_budget=2 * REPLAY_BYTES_PER_CELL * g.n_vertices)
     if pol.points_chunk(g.n_vertices, len(alphas)) >= len(alphas):
         raise SystemExit("dirty sweep: the budget does not split the sweep")
@@ -750,6 +753,7 @@ def run_dirty_sweep(spec: dict) -> dict:
         raise SystemExit(f"dirty sweep makespans {mk.tolist()} != the JAX "
                          f"package's {want.tolist()}")
     if (moved["chunks"] < 2 or moved["demoted_columns"] <= 0 or
+            moved["latency_bound_chunks"] != 0 or
             moved["cuda_chunks"] != moved["chunks"] or
             moved["launches"] <= 0):
         raise SystemExit(f"dirty sweep did not split, demote and rerun on "
@@ -1375,7 +1379,7 @@ def run_suite(expected: dict) -> dict:
     the JAX package's values (``configs/suite_expected.json``).
 
     (a) ``suite_sweep_grid`` over PAPER_15 at N=20 with the fixture's grid
-    (default float32 policy and budget), cold and memo-warm, against the
+    (default policy and budget), cold and memo-warm, against the
     per-member ``sweep_grid`` loop (memo-warm) and once more under a
     budget that splits the suite into replay groups and column chunks;
     (b) ``suite_t_inf_sweep`` and ``suite_grid_report(simulate_points=
@@ -1851,7 +1855,7 @@ def service_scenarios(expected: dict, work: Path) -> dict:
     """Phase "service": ``perf_service.py``'s streams through the port's
     ``AnalysisService`` on the card, against the JAX package's run of the
     same streams (``configs/service_expected.json``): the clean stream
-    (every request on rung 0, ``("cuda", "float32")``, K1 on the card
+    (every request on rung 0, ``("cuda", None)``, K1 on the card
     only), the transient stream, the poisoned wave, a ``kernel`` fault
     (the request ends one rung down on ``("cuda", "float64")``, stored as
     JSON), a ``cache`` fault (the corrupted entry quarantined and
@@ -1863,7 +1867,7 @@ def service_scenarios(expected: dict, work: Path) -> dict:
     from repro_torch.serve import AnalysisService, faults
     c, reports = expected["config"], expected["reports"]
     rung0 = ExecPolicy.resolve().ladder()[0]
-    if (rung0.backend, rung0.replay_dtype) != ("cuda", "float32"):
+    if (rung0.backend, rung0.replay_dtype) != ("cuda", None):
         raise SystemExit(f"the default policy's first rung is {rung0}")
     out: dict = {}
 
@@ -1873,7 +1877,7 @@ def service_scenarios(expected: dict, work: Path) -> dict:
     check_results(clean, expected["clean"], reports, "clean stream")
     off_rung0 = [r.rid for r in clean if
                  (r.policy["backend"], r.policy["replay_dtype"]) !=
-                 ("cuda", "float32") or r.policy["demotions"] != 0]
+                 ("cuda", None) or r.policy["demotions"] != 0]
     if off_rung0:
         raise SystemExit(f"clean requests {off_rung0} left rung 0")
     if B.stats["cuda_chunks"] <= 0 or B.stats["cpu_chunks"] != 0:
@@ -2217,7 +2221,7 @@ def zoo_traces(c: dict, expected: dict) -> tuple:
 
 def zoo_service(c: dict, want: dict) -> dict:
     """(c) The model requests through the port's ``AnalysisService``: a
-    clean one and a union batch of three on rung 0 ``("cuda", "float32")``,
+    clean one and a union batch of three on rung 0 ``("cuda", None)``,
     a transient and a hard ``trace-model`` fault; every outcome the JAX
     package's and every report its analysis of the same eDAG."""
     from repro_torch.core import backend as B
@@ -2248,7 +2252,7 @@ def zoo_service(c: dict, want: dict) -> dict:
     check_results(batch, want["union"], want["reports"], "model union")
     off = [r.rid for r in clean + batch if (r.policy["backend"],
            r.policy["replay_dtype"], r.policy["demotions"]) !=
-           ("cuda", "float32", 0)]
+           ("cuda", None, 0)]
     if off or B.stats["cuda_chunks"] <= 0 or B.stats["cpu_chunks"] != 0:
         raise SystemExit(f"model requests {off} off rung 0, replays "
                          f"{dict(B.stats)}")
@@ -3857,11 +3861,15 @@ def main() -> int:
         reset_counts()
         B.reset_stats()
         launches = run_main_path(expected, ExecPolicy.resolve(),
-                                 paper.FIGURES, "float32")
+                                 paper.FIGURES, "default")
         if B.stats["cuda_chunks"] <= 0 or B.stats["cpu_chunks"] != 0:
             raise SystemExit(f"replay chunks did not run on the card: "
                              f"{dict(B.stats)}")
-        f32_stats = B.stats.snapshot()
+        if (B.stats["latency_bound_chunks"] != B.stats["chunks"] or
+                B.stats["certified_columns"] != 0):
+            raise SystemExit(f"the default policy did not run one float64 "
+                             f"pass a chunk: {dict(B.stats)}")
+        default_stats = B.stats.snapshot()
         B.reset_stats()
         dirty_stats = run_dirty_sweep(expected["dirty_sweep"])
         B.reset_stats()
@@ -4001,8 +4009,8 @@ def main() -> int:
             shape=("gemm N=20 replay plan m=4 cs=8, k=11 float32, R_out, "
                    "one call"),
             levels=main_levels, hpcg_dag_pass=hpcg_pass,
-            launches_per_figure=dict(float32=launches, float64=launches_x64),
-            stats=dict(float32=f32_stats, dirty_sweep=dirty_stats,
+            launches_per_figure=dict(default=launches, float64=launches_x64),
+            stats=dict(default=default_stats, dirty_sweep=dirty_stats,
                        float64=B.stats.snapshot()),
             measurements=meas, sweep_profile=prof, kernel_cases=n_cases,
             launches_suite=suite_launches["level_step"],

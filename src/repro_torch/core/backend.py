@@ -25,13 +25,20 @@ which honours the replay dtype policy of the reference package:
 
 * ``float64`` (``EDAN_X64=1`` / ``replay_dtype="float64"``): the exact
   float64 kernel.
-* ``float32`` (the default on the card): the pass runs in float32, then
-  each column is certified against a per-level error bound — finish times
-  are nonnegative integer multiples of the column's quantum ``q``
-  (``column_quanta``), so a makespan safely below ``2^24 * q`` proves the
-  float32 pass exact.  Columns that fail are rerun in float64 on the same
-  device.  float32 is an execution strategy, never an answer: returned
-  values are bit-identical to the float64 kernel.
+* ``float32`` (named by argument or environment): the pass runs in
+  float32, then each column is certified against a per-level error bound
+  — finish times are nonnegative integer multiples of the column's
+  quantum ``q`` (``column_quanta``), so a makespan safely below
+  ``2^24 * q`` proves the float32 pass exact.  Columns that fail are
+  rerun in float64 on the same device.  float32 is an execution strategy,
+  never an answer: returned values are bit-identical to the float64
+  kernel.
+
+Where no argument or variable names a dtype (``named_replay_dtype`` is
+None), the reference's float32 default runs on the card as the float64
+pass alone: a level of the kernel costs a round of dependent gathers and a
+barrier whatever its bytes, and on the card the whole float32 dispatch
+never beat one float64 pass (see ``replay_accumulate``).
 
 On the ``cpu`` backend the environment's policy knobs are inert (the plain
 float64 version runs), but an explicit ``replay_dtype`` argument is
@@ -58,10 +65,14 @@ _REPLAY_DTYPES = ("float32", "float64")
 #: ``chunks`` counts dispatches; ``cuda_chunks`` those whose passes ran on
 #: the card (``cuda_f64_chunks`` the subset run under the float64 policy);
 #: ``cpu_chunks`` those run by the plain version on the host;
+#: ``latency_bound_chunks`` those the card's default (no dtype named) ran
+#: as one float64 pass;
 #: ``certified_columns`` / ``demoted_columns`` count sweep columns the
-#: float32 certificate accepted / sent to the float64 pass.
+#: float32 certificate accepted / that ran the float64 pass under it (the
+#: latency-bound dispatches' columns among them).
 stats = Stats(chunks=0, cuda_chunks=0, cuda_f64_chunks=0, cpu_chunks=0,
-              certified_columns=0, demoted_columns=0)
+              latency_bound_chunks=0, certified_columns=0,
+              demoted_columns=0)
 
 #: Fault-injection hook: when set, called with no arguments at the top of
 #: every CUDA dispatch.  An exception it raises propagates to the caller.
@@ -108,7 +119,16 @@ def replay_dtype_policy(override: Optional[str] = None) -> str:
     Precedence: explicit ``replay_dtype`` argument > ``$EDAN_X64`` (truthy
     selects ``float64``) > ``$EDAN_REPLAY_DTYPE`` > ``float32``.
     Unrecognized values, argument or environment, raise with the valid
-    choices."""
+    choices.  The ``float32`` that nothing names is the reference's
+    default; the card runs it as one float64 pass (``replay_accumulate``).
+    """
+    return named_replay_dtype(override) or "float32"
+
+
+def named_replay_dtype(override: Optional[str] = None) -> Optional[str]:
+    """The replay dtype an argument or variable names, by
+    ``replay_dtype_policy``'s precedence, or None where none names one (a
+    falsy ``$EDAN_X64`` names none)."""
     if override:
         if override not in _REPLAY_DTYPES:
             raise ValueError(f"unknown replay_dtype {override!r}; pick "
@@ -127,7 +147,7 @@ def replay_dtype_policy(override: Optional[str] = None) -> str:
             raise ValueError(f"unknown $EDAN_REPLAY_DTYPE value {env!r}; "
                              f"pick from {_REPLAY_DTYPES}")
         return env
-    return "float32"
+    return None
 
 
 @dataclass
@@ -455,11 +475,13 @@ def replay_accumulate(lv: LevelCSR, F: torch.Tensor, quanta,
     * float64 policy (``EDAN_X64=1`` / ``replay_dtype="float64"``, or the
       ``cpu`` backend without an explicit ``replay_dtype``): one float64
       pass.
-    * float32 policy (the default on ``cuda``): a pre-screen keeps columns
-      whose bases all sit below the threshold (so their float32 cast is
-      lossless), one float32 pass over them, the per-column certificate,
-      and a float64 pass on the same device over every column that was
-      screened off or failed.
+    * the default on ``cuda`` (no argument or variable names a dtype):
+      one float64 pass, counted in ``latency_bound_chunks``.
+    * float32 policy (named): a pre-screen keeps columns whose bases all
+      sit below the threshold (so their float32 cast is lossless), one
+      float32 pass over them, the per-column certificate, and a float64
+      pass on the same device over every column that was screened off or
+      failed.
 
     ``quanta`` is the per-column quantum from ``column_quanta``.  Counters
     land in ``backend.stats``."""
@@ -475,14 +497,26 @@ def replay_accumulate(lv: LevelCSR, F: torch.Tensor, quanta,
     _check_device(F, b)
     # an explicit replay_dtype is validated (and honoured) on every
     # backend; the environment's knobs only steer the card
-    pol = (replay_dtype_policy(replay_dtype)
+    pol = (named_replay_dtype(replay_dtype)
            if (b == "cuda" or replay_dtype) else "float64")
     k = F.shape[1]
-    if pol == "float64" or k == 0:
+    if pol != "float32" or k == 0:
+        # the float64 policy, and the card's default (nothing names a
+        # dtype): K1 is bound by its levels' latency, and the float32
+        # dispatch adds a pre-screen, casts, a certificate, copies and two
+        # host syncs.  It never beat one float64 pass on an H100
+        # (`launch/k1_dtype.py`: 1.08-2.19x on HPCG 16^3 x 6's replay
+        # plan, k = 1-9, and 1.50-11.9x on wide, shallow plans of up to
+        # 2.9 GB a level within the replay budget, though the float32 pass
+        # alone was up to 1.6x faster there), so the default runs float64
+        # alone, whatever the shape, its columns counted as demoted.
         _pass(lv, F, clamp, R_out)
         _count_pass(F)
         if F.is_cuda and pol == "float64":
             stats.add("cuda_f64_chunks")
+        if pol is None:
+            stats.add("latency_bound_chunks")
+            stats.add("demoted_columns", k)
         return F
     # error-bounded float32 mode.  The pre-screen is load-bearing: the
     # a-posteriori certificate only detects rounding inside the pass, so

@@ -120,9 +120,11 @@ class ExecPolicy:
         the policy as requested, then float64 on the requested policy's own
         device (no float32 certificate to fail), then ``("cpu",
         "float64")`` (no card at all).  Each rung is resolved to its
-        concrete backend and effective replay dtype before equal rungs are
-        dropped, so a ``cpu`` request has one or two rungs and never a
-        device rung.  A knob that does not resolve (a typo, or ``cuda``
+        concrete backend and the replay dtype an argument or variable
+        names before equal rungs are dropped, so a ``cpu`` request has one
+        or two rungs and never a device rung.  Where nothing names a dtype
+        on the card, rung 0's stays None: the dispatch's default, one
+        float64 pass.  A knob that does not resolve (a typo, or ``cuda``
         without a card) is kept as given and raises again at dispatch, on
         its rung.  Budget and cache policy carry through unchanged."""
         try:
@@ -131,7 +133,7 @@ class ExecPolicy:
             backend = self.backend
         try:
             dtype = ("float64" if backend == "cpu" and not self.replay_dtype
-                     else _bk.replay_dtype_policy(self.replay_dtype))
+                     else _bk.named_replay_dtype(self.replay_dtype))
         except ValueError:
             dtype = self.replay_dtype
         kw = dict(mem_budget=self.mem_budget, use_cache=self.use_cache)

@@ -24,10 +24,11 @@ kernel (K1) on the card.
   ``max_retries`` (default ``$EDAN_MAX_RETRIES``, else 2) with exponential
   backoff.  Replay failures also walk ``ExecPolicy.ladder``: the requested
   policy, then float64 on the same device, then ``("cpu", "float64")``.
-  The rung a result was answered on (its concrete backend and replay
-  dtype) and the failures it took are reported per result.  A fault
-  inside the level kernel's dispatch (``faults`` stage ``kernel``)
-  reaches this stage, so it is retried and demoted visibly.
+  The rung a result was answered on (its concrete backend and the replay
+  dtype named, None for the card's default) and the failures it took are
+  reported per result.  A fault inside the level kernel's dispatch
+  (``faults`` stage ``kernel``) reaches this stage, so it is retried and
+  demoted visibly.
 
 * **Poison isolation** — a union that keeps failing after the ladder is
   torn down into solo re-runs; a trace whose solo run also fails is

@@ -334,5 +334,84 @@ def test_cpu_backend_without_explicit_dtype_runs_float64(monkeypatch):
                                 np.ones(3), clamp=True)
     assert np.array_equal(got.numpy(), rbk._accumulate_numpy(lv, base.copy()))
     assert dict(tbk.stats) == dict(chunks=1, cuda_chunks=0, cuda_f64_chunks=0,
-                                   cpu_chunks=1, certified_columns=0,
-                                   demoted_columns=0)
+                                   cpu_chunks=1, latency_bound_chunks=0,
+                                   certified_columns=0, demoted_columns=0)
+
+
+# ------------------------------------------------ latency-bound dispatch
+
+def _dispatch_case(kind: str):
+    """(plan, bases, quanta, columns the certificate accepts): a deep,
+    narrow chain (400 levels, k = 2), a replay plan with slot chains
+    (k = 3) and a wide, shallow plan at a large k (3 levels of 256, k =
+    64).  The 0.1 columns fail the certificate; the rest pass it."""
+    if kind == "chain":
+        lv, alphas = port_csr(_drift_chain()._level_csr()), [1.0, 0.1]
+        base = np.tile(alphas, (lv.n, 1))
+        return lv, base, tbk.column_quanta(alphas, 1.0), 1
+    if kind == "replay":
+        lv = port_csr(_replay_lv(_random_edag(5, n=60, p=0.1), 2, 3))
+        alphas = [50.0, 75.0, 0.1]
+        base = np.tile(alphas, (lv.n + 1, 1))
+        base[-1] = 0.0
+        return lv, base, tbk.column_quanta(alphas, 1.0), 2
+    lv = wide_plan(levels=3, width=256, deg=4)
+    base = np.random.default_rng(3).integers(1, 300, (lv.n, 64)) * 1.0
+    return lv, base, np.ones(64), 64
+
+
+def wide_plan(levels: int, width: int, deg: int) -> tbk.LevelCSR:
+    """``levels`` levels of ``width`` vertices; each vertex past the first
+    level takes ``deg`` random predecessors on the level below."""
+    rng = np.random.default_rng(0)
+    n = levels * width
+    dst = np.repeat(np.arange(width, n, dtype=np.int64), deg)
+    src = (dst // width - 1) * width + rng.integers(0, width, len(dst))
+    level = (np.arange(n) // width).astype(np.int32)
+    return tbk.build_level_partition(src.astype(np.int32),
+                                     dst.astype(np.int32), level, n)
+
+
+@pytest.fixture
+def as_if_on_the_card(monkeypatch):
+    """The dispatch's card branch over host tensors: the cuda backend is
+    selected while the passes run the plain version."""
+    monkeypatch.setattr(tbk, "select_backend",
+                        lambda override=None: "cuda")
+    monkeypatch.setattr(tbk, "_check_device", lambda F, backend: None)
+
+
+@pytest.mark.parametrize("named", [None, "x64_off", "argument",
+                                   "environment"])
+@pytest.mark.parametrize("kind", ["chain", "replay", "wide"])
+def test_card_default_runs_the_float64_pass_alone(as_if_on_the_card,
+                                                  monkeypatch, kind, named):
+    """The card's float32 default (nothing names a dtype; a falsy
+    ``$EDAN_X64`` names none) runs one float64 pass whatever the plan's
+    shape, its columns counted as demoted; the float32 policy named by
+    argument or environment runs the certificate whatever the shape.  The
+    answers are the float64 pass's bit for bit."""
+    lv, base, quanta, n_ok = _dispatch_case(kind)
+    k = base.shape[1]
+    R_want = torch.zeros(base.shape, dtype=torch.float64)
+    want = tbk.replay_accumulate(lv, torch.from_numpy(base.copy()), quanta,
+                                 R_out=R_want, replay_dtype="float64")
+    if named == "x64_off":
+        monkeypatch.setenv("EDAN_X64", "0")
+    if named == "environment":
+        monkeypatch.setenv("EDAN_REPLAY_DTYPE", "float32")
+    tbk.reset_stats()
+    R = torch.zeros(base.shape, dtype=torch.float64)
+    got = tbk.replay_accumulate(
+        lv, torch.from_numpy(base.copy()), quanta, R_out=R,
+        replay_dtype="float32" if named == "argument" else None)
+    assert torch.equal(got, want) and torch.equal(R, R_want)
+    st = dict(tbk.stats)
+    assert st["chunks"] == st["cpu_chunks"] == 1
+    assert st["cuda_f64_chunks"] == 0
+    if named in (None, "x64_off"):
+        assert st["latency_bound_chunks"] == 1
+        assert _cert_counts(st) == (0, k)
+    else:
+        assert st["latency_bound_chunks"] == 0
+        assert _cert_counts(st) == (n_ok, k - n_ok)

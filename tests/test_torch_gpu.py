@@ -120,6 +120,38 @@ def test_engine_on_card_equals_engine_on_host(card, dtype, monkeypatch):
                               np.asarray(on_host[k])), k
 
 
+def test_default_policy_runs_latency_bound_sweeps_in_float64(card,
+                                                             monkeypatch):
+    """Under the card's default policy the dispatches of lu N=10's sweep
+    run the float64 pass alone, nothing is certified, and the answers
+    equal the host's bit for bit.  The float32 policy named explicitly
+    still certifies, and demotes the 0.1 column."""
+    alphas = [50.0, 125.0, 0.1, 300.0]
+    got = {}
+    for dtype in (None, "float32"):
+        B.reset_stats()
+        got[dtype] = sweep_report(polybench.trace_kernel("lu", 10), alphas,
+                                  simulate_points=True, compute_slots=8,
+                                  replay_dtype=dtype)
+        st = B.stats.snapshot()
+        assert st["cuda_chunks"] > 0 and st["cpu_chunks"] == 0
+        assert st["cuda_f64_chunks"] == 0
+        if dtype is None:
+            assert st["latency_bound_chunks"] > 0
+            assert st["certified_columns"] == 0
+        else:
+            assert st["latency_bound_chunks"] == 0
+            assert st["certified_columns"] >= 1
+            assert st["demoted_columns"] >= 1     # the 0.1 column
+    monkeypatch.setenv("EDAN_TORCH_BACKEND", "cpu")
+    on_host = sweep_report(polybench.trace_kernel("lu", 10), alphas,
+                           simulate_points=True, compute_slots=8)
+    for dtype, on_card in got.items():
+        for k in on_host:
+            assert np.array_equal(np.asarray(on_card[k]),
+                                  np.asarray(on_host[k])), (dtype, k)
+
+
 # ------------------------------------------------ recurrence kernels (K2, K3)
 
 def _rel(a, b):
@@ -570,8 +602,9 @@ def _same_reports(a: dict, b: dict) -> bool:
 
 
 def test_service_answers_on_rung_0_on_the_card(card, tmp_path, monkeypatch):
-    """A union batch answered on the level kernel on the card, at rung 0,
-    equal bit for bit to the host's answers."""
+    """A union batch answered on the level kernel on the card, at rung 0
+    (no dtype named: one float64 pass a chunk), equal bit for bit to the
+    host's answers."""
     from repro_torch.serve import AnalysisService, faults
     monkeypatch.setenv("EDAN_SCHEDULE_CACHE", str(tmp_path))
     faults.reset()
@@ -581,9 +614,10 @@ def test_service_answers_on_rung_0_on_the_card(card, tmp_path, monkeypatch):
         _service_requests(None))
     assert all(r.ok for r in out) and len(out[0].batch_rids) == 3
     for r in out:
-        assert r.policy == {"backend": "cuda", "replay_dtype": "float32",
+        assert r.policy == {"backend": "cuda", "replay_dtype": None,
                             "demotions": 0}
     assert B.stats["cuda_chunks"] > 0 and B.stats["cpu_chunks"] == 0
+    assert B.stats["latency_bound_chunks"] == B.stats["chunks"]
     assert level_step.launches > launches
     host = AnalysisService(start=False, backoff_s=0.0).process(
         _service_requests("cpu"))
@@ -827,7 +861,7 @@ def test_model_request_on_rung_0_on_the_card(card, tmp_path, monkeypatch):
     (res,) = AnalysisService(start=False, backoff_s=0.0).process(
         [request(None)])
     assert res.ok and res.policy == {"backend": "cuda",
-                                     "replay_dtype": "float32",
+                                     "replay_dtype": None,
                                      "demotions": 0}
     assert level_step.launches > launches
     (host,) = AnalysisService(start=False, backoff_s=0.0).process(

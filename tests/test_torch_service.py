@@ -989,13 +989,36 @@ def test_ladder_resolves_rungs_before_dropping_equal_ones(backend, dtype,
 
 def test_ladder_without_a_card_keeps_the_request(monkeypatch):
     """A ``cuda`` request on a host without a card keeps its rungs as
-    given (they raise again at dispatch) and ends on ``("cpu",
-    "float64")``: the only rung that names the host is the last."""
+    given (they raise again at dispatch; no dtype named stays None) and
+    ends on ``("cpu", "float64")``: the only rung that names the host is
+    the last."""
     if T.backend.torch.cuda.is_available():
         pytest.skip("this host has a card")
     got = T.ExecPolicy.resolve(backend="cuda").ladder()
     assert [(p.backend, p.replay_dtype) for p in got] == \
-        [("cuda", "float32"), ("cuda", "float64"), ("cpu", "float64")]
+        [("cuda", None), ("cuda", "float64"), ("cpu", "float64")]
+
+
+@pytest.mark.parametrize("env,dtype,rung0", [
+    ({}, None, None),
+    ({"EDAN_X64": "0"}, None, None),
+    ({"EDAN_REPLAY_DTYPE": "float32"}, None, "float32"),
+    ({}, "float32", "float32"),
+    ({"EDAN_X64": "1"}, None, "float64"),
+])
+def test_ladder_on_the_card_names_only_a_named_dtype(monkeypatch, env,
+                                                     dtype, rung0):
+    """On the card rung 0 carries the dtype an argument or variable
+    names, and None where none does (the dispatch's default, one float64
+    pass); a named float64 collapses into the demotion rung."""
+    monkeypatch.setattr(T.backend, "select_backend",
+                        lambda override=None: "cuda")
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    got = T.ExecPolicy.resolve(replay_dtype=dtype).ladder()
+    want = [("cuda", rung0), ("cuda", "float64"), ("cpu", "float64")]
+    assert [(p.backend, p.replay_dtype) for p in got] == \
+        (want[1:] if rung0 == "float64" else want)
 
 
 # ---------------------------------------------------------- the fault layer
